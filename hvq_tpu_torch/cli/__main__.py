@@ -1,0 +1,6 @@
+from hvq_tpu_torch.cli.main import main
+
+if __name__ == "__main__":
+    import sys
+
+    sys.exit(main())

@@ -1,0 +1,340 @@
+"""Batched exact engine: the PyTorch counterpart of
+``hvq_tpu.models.batched``.
+
+The engine batches ``query_batch`` queries into one (B, 128) block and
+runs, per batch:
+
+1. the packed bin scan K1 (``ops.kernels.packed_scan_v3``): masked
+   distances and the best R packed keys per 128-row bin of every tile;
+2. the top-k′ of that candidate stream, through the level-2 packed reduce
+   (``ops.topk.binned_stream_topk``) when the stream is wide;
+3. exact fp32 refinement of the k′ survivors, reference tail padding and
+   the final ascending sort (``models.common.finalize``);
+4. the exactness certificate: with t the k-th refined distance, a bin, the
+   level-2 reduce or the k′ cut can hide a better row only if its worst
+   kept (quantized) distance is below t plus a rigorous fp slack.
+
+Queries whose certificate fails are compacted into fresh batches and
+re-run: first through the packed scan at twice the bin depth, then through
+the streaming exact scan (``models.common.scan_database``) for any still
+suspect. See the JAX module for the derivation of the ``_CERT_*`` bounds.
+
+``scan_impl``: ``"v3"`` (the default, also ``"auto"``) is the packed scan
+through K1: its plain PyTorch version on a CPU device, the CUDA kernel on
+a CUDA device. ``"packed"`` is the plain version on any device.
+``"stream"`` is the certified streaming path.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from hvq_tpu import constants as _c
+from hvq_tpu.utils.formats import Dataset, QuerySet
+from hvq_tpu_torch.models import common
+from hvq_tpu_torch.models.device_db import DeviceDB, resolve_device, upload
+from hvq_tpu_torch.ops import kernels
+from hvq_tpu_torch.ops.distance import require_ieee_fp32
+from hvq_tpu_torch.ops.masks import query_predicate_fields
+from hvq_tpu_torch.ops.scan import (
+    choose_bin_top,
+    last_round_dists,
+    packed_scan_plain,
+)
+from hvq_tpu_torch.ops.topk import BIN, binned_stream_topk, smallest_k
+from hvq_tpu_torch.utils.timing import maybe_phase
+
+# Packed query-block layout: [vector (VEC_DIM) | qtype | v | l | r].
+QPACK_W = _c.VEC_DIM + 4
+
+# Exactness-certificate slack terms, verbatim from hvq_tpu.models.batched:
+# worst-order fp32 accumulation over ≤128 lanes (≈7.63e-6·‖q‖‖d‖) with the
+# 2× cross-term factor and ~2× margin; the packed key truncates 7 mantissa
+# bits (2⁻¹⁶ relative, rounding down); the bf16 scan plane carries ≤2⁻⁹
+# relative rounding per operand.
+_CERT_REL_MM = 1.6e-5      # × (‖q‖² + max ‖d‖²)
+_CERT_REL_T = 2.0 ** -13   # × t  (covers key quantization ×8 margin)
+_CERT_ABS = 1e-6
+_CERT_REL_MM_BF16 = 8e-3   # × (‖q‖² + max ‖d‖²), ≈ 2×·2⁻⁸
+
+# Selection precision of the streaming path: the JAX engine's default,
+# the 3-pass bf16 split (error ≈ 2⁻²¹, inside _CERT_REL_MM).
+_STREAM_PRECISION = "high"
+
+SCAN_IMPLS = ("v3", "packed", "stream")
+
+
+def pack_query_block(qV: np.ndarray, qtype, v, l, r) -> np.ndarray:
+    """Host-side: one (m, QPACK_W) float32 block = one upload."""
+    m = qV.shape[0]
+    out = np.empty((m, QPACK_W), np.float32)
+    out[:, : _c.VEC_DIM] = qV[:, : _c.VEC_DIM]
+    out[:, _c.VEC_DIM] = qtype               # 0..3, exact in fp32
+    out[:, _c.VEC_DIM + 1] = v
+    out[:, _c.VEC_DIM + 2] = l
+    out[:, _c.VEC_DIM + 3] = r
+    return out
+
+
+def _pow2_batch(m: int, cap: int) -> int:
+    """Smallest pow-2 rerun batch ≥ m (min 64, capped at ``cap``): a handful
+    of suspects should not pay a query_batch-wide matmul."""
+    B = 64
+    while B < m and B < cap:
+        B *= 2
+    return min(B, cap)
+
+
+def rerun_suspect_ladder(
+    suspects, ids_out, dists_out, B, deeper, rung1_impl, run
+) -> dict:
+    """Compacted certificate-escalation ladder.
+
+    Flagged queries are gathered into fresh batches, re-run through
+    ``rung1_impl`` at the ``deeper`` bin depth, and any still-suspect
+    queries go through the streaming exact path. ``run(sel, impl,
+    bin_top)`` executes the query indices ``sel`` as one batch and returns
+    host (ids, suspect, dists); results scatter back into ``ids_out`` and
+    ``dists_out`` by index. Returns counts of what each rung did.
+    """
+    idx = np.nonzero(suspects)[0]
+    stats = dict(suspects=int(idx.size), rung1_bin_top=deeper, rung1_runs=0,
+                 rung2_queries=0, rung2_runs=0)
+
+    def batches(indices):
+        for s in range(0, indices.size, B):
+            sel0 = indices[s : s + B]
+            Br = _pow2_batch(sel0.size, B)
+            yield sel0, np.concatenate(
+                [sel0, np.repeat(sel0[:1], Br - sel0.size)]
+            )
+
+    still = [idx]
+    if deeper is not None:
+        still = []
+        for sel0, sel in batches(idx):
+            ids, sus, d = run(sel, rung1_impl, deeper)
+            stats["rung1_runs"] += 1
+            fixed = ~sus[: sel0.size]
+            ids_out[sel0[fixed]] = ids[: sel0.size][fixed]
+            dists_out[sel0[fixed]] = d[: sel0.size][fixed]
+            still.append(sel0[~fixed])
+    idx2 = np.concatenate(still)
+    stats["rung2_queries"] = int(idx2.size)
+    for sel0, sel in batches(idx2):
+        ids, _, d = run(sel, "stream", None)
+        stats["rung2_runs"] += 1
+        ids_out[sel0] = ids[: sel0.size]
+        dists_out[sel0] = d[: sel0.size]
+    return stats
+
+
+class BatchedEngine:
+    """Batched exact scan engine on one device."""
+
+    name = "batched"
+
+    def __init__(
+        self,
+        ds: Dataset,
+        device: torch.device | str = "cpu",
+        db_tile: int | None = None,
+        query_batch: int | None = None,
+        scan_impl: str = "auto",
+        device_db: DeviceDB | None = None,
+        certified: bool = True,
+        bin_top: int | None = None,
+        scan_store: str = "fp32",
+    ):
+        self.device = resolve_device(device)
+        require_ieee_fp32(self.device)
+        scan_impl = "v3" if scan_impl == "auto" else scan_impl
+        if scan_impl not in SCAN_IMPLS:
+            raise ValueError(f"unknown scan_impl {scan_impl!r}; one of {SCAN_IMPLS}")
+        if device_db is None:
+            device_db = DeviceDB.from_dataset(
+                ds, db_tile=db_tile or 16384, scan_store=scan_store,
+                device=self.device,
+            )
+        elif device_db.device != self.device:
+            raise ValueError(
+                f"device_db lives on {device_db.device}, engine on {self.device}"
+            )
+        self.db = device_db
+        # A provided device_db decides the scan plane itself.
+        self._bf16_scan = self.db.V_scan is not None
+        self.query_batch = query_batch or 1024
+        # bf16 plane: the slack widens ~500×; a wider k' keeps the k'-cut
+        # boundary clear of it (240, not 256: see the JAX engine)
+        self.kprime = 240 if self._bf16_scan else 128
+        self.certified = bool(certified)
+        self._rel_mm = _CERT_REL_MM_BF16 if self._bf16_scan else _CERT_REL_MM
+        self.bin_top = (
+            bin_top if bin_top is not None
+            else choose_bin_top(self.db.n_pad, self.kprime,
+                                certified=self.certified)
+        )
+        if self.bin_top is None:
+            scan_impl = "stream"
+        self.scan_impl = scan_impl
+        self._pos = torch.arange(self.db.n_pad, dtype=torch.int32,
+                                 device=self.device)
+        self.tail_V = upload(common.tail_block_np(ds.V, t=self.kprime),
+                             self.device)
+        # max ‖d‖² for the certificate's matmul-error term (one build-time
+        # sync, kept out of the per-batch loop)
+        self._dn_max = (
+            float(self.db.d_norms.max()) if self.certified else 0.0
+        )
+        # what the rerun ladder did in the last search()
+        self.last_ladder: dict = {}
+
+    def _search_batch(
+        self,
+        Qblk: torch.Tensor,   # (B, QPACK_W) packed query block on the device
+        sn: int,
+        n: int,
+        k: int,
+        impl: str | None = None,
+        bin_top: int | None = None,
+        level2: bool = True,
+        phases=None,
+    ):
+        """One query batch → (ids int32 (B, k), suspect bool (B,),
+        dists fp32 (B, k)), all on the device."""
+        impl = impl or self.scan_impl
+        bin_top = bin_top or self.bin_top
+        db = self.db
+        B = Qblk.shape[0]
+        qV = torch.nn.functional.pad(
+            Qblk[:, : _c.VEC_DIM], (0, _c.PADDED_DIM - _c.VEC_DIM)
+        )
+        fields = query_predicate_fields(
+            *(Qblk[:, _c.VEC_DIM + j].contiguous() for j in range(4))
+        )
+        qb = common.QueryBatch(qV, *fields)
+        Dt = db.db_tile
+        if impl == "stream":
+            with maybe_phase(phases, "batch/stream_scan"):
+                scores, ids = common.scan_database(
+                    db.Vp, db.C, db.T, db.d_norms, qb, sn,
+                    kprime=self.kprime, db_tile=Dt, precision=_STREAM_PRECISION,
+                )
+            with maybe_phase(phases, "batch/finalize"):
+                f_ids, f_d = common.finalize(
+                    scores, ids, db.Vp, qb, n, k, self.tail_V
+                )
+            return f_ids, torch.zeros(B, dtype=torch.bool, device=qV.device), f_d
+
+        scan = kernels.packed_scan_v3 if impl == "v3" else packed_scan_plain
+        with maybe_phase(phases, "batch/scan"):
+            out_s, out_i = scan(
+                db.scan_V, db.C, db.T, db.d_norms, self._pos, qV, *fields, sn,
+                db_tile=Dt, bin_top=bin_top,
+            )
+        W = out_s.shape[1]
+        kp = min(self.kprime, W)
+        worst2 = None
+        with maybe_phase(phases, "batch/select"):
+            # Level-2 gate: W ≥ 16384 is the axis1 soundness floor — it
+            # keeps ≥ 128 level-2 bins, so the Poisson load per bin stays
+            # ≤ 1 (see the JAX engine). Reruns pass level2=False: one
+            # batch's plain top-k certifies harder.
+            if level2 and W >= 16384:
+                scores, ids, worst2 = binned_stream_topk(out_s, out_i, kp)
+            else:
+                scores, idx = smallest_k(out_s, kp)
+                ids = torch.gather(out_i, 1, idx)
+            kcut_score = scores[:, kp - 1] if kp < W else None
+        with maybe_phase(phases, "batch/finalize"):
+            f_ids, f_d = common.finalize(
+                scores, ids, db.Vp, qb, n, k, self.tail_V
+            )
+        if not self.certified:
+            return f_ids, torch.zeros(B, dtype=torch.bool, device=qV.device), f_d
+        with maybe_phase(phases, "batch/certificate"):
+            # nothing outside the kept candidates can beat the k-th
+            # refined distance t unless a term below fires
+            t = f_d[:, k - 1]
+            qnorm = (qV * qV).sum(dim=1)
+            thr = t + (
+                self._rel_mm * (qnorm + self._dn_max) + _CERT_REL_T * t
+                + _CERT_ABS
+            )
+            worst = last_round_dists(out_s, db.num_tiles, bin_top, Dt // BIN)
+            suspect = common.cert_suspect(
+                worst.amin(dim=1) < thr,
+                worst2 < thr if worst2 is not None else None,
+                kcut_score < thr if kcut_score is not None else None,
+            )
+        return f_ids, suspect, f_d
+
+    @staticmethod
+    def _fetch(ids, suspect, dists):
+        """ONE device→host copy: host (ids int32, suspect bool, dists fp32)."""
+        k = ids.shape[1]
+        host = torch.cat(
+            [ids, dists.view(torch.int32), suspect.to(torch.int32)[:, None]],
+            dim=1,
+        ).cpu().numpy()
+        return host[:, :k], host[:, 2 * k] != 0, host[:, k : 2 * k].view(np.float32)
+
+    def search(
+        self,
+        qs: QuerySet,
+        k: int = _c.K_DEFAULT,
+        sample_proportion: float = 1.0,
+        phases=None,
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """Run the query set; returns (ids (m, k) uint32, dists (m, k) fp32).
+
+        ``phases``: optional ``utils.timing.PhaseTimer`` that receives the
+        per-stage breakdown (pack, upload, scan, select, finalize,
+        certificate, fetch, rerun).
+        """
+        n = self.db.n
+        sn = int(sample_proportion * n)
+        B = self.query_batch
+        with maybe_phase(phases, "search/pack"):
+            Vq, qtype, v, l, r, m_pad = common.pad_query_arrays(qs, B)
+            Qpack = pack_query_block(Vq.astype(np.float32), qtype, v, l, r)
+        with maybe_phase(phases, "search/upload"):
+            Q_dev = upload(Qpack, self.device)
+        ids_out = np.empty((m_pad, k), np.int32)
+        dists_out = np.empty((m_pad, k), np.float32)
+        suspects = np.empty(m_pad, bool)
+        for s in range(0, m_pad, B):
+            res = self._search_batch(Q_dev[s : s + B], sn, n, k, phases=phases)
+            with maybe_phase(phases, "search/fetch"):
+                ids_out[s : s + B], suspects[s : s + B], dists_out[s : s + B] = (
+                    self._fetch(*res)
+                )
+            del res
+        self.last_ladder = dict(suspects=0)
+        if suspects.any():
+            with maybe_phase(phases, "search/rerun"):
+                self.last_ladder = self._rerun_suspects(
+                    Qpack, suspects, ids_out, dists_out, sn, n, k
+                )
+        return ids_out[: qs.m].astype(np.uint32), dists_out[: qs.m]
+
+    def _rerun_suspects(self, Qpack, suspects, ids_out, dists_out, sn, n, k):
+        """Re-run the queries whose certificate failed (see
+        :func:`rerun_suspect_ladder`): rung 1 is this engine's packed scan
+        at 2R, rung 2 the streaming exact scan."""
+        deeper = None
+        if self.scan_impl in ("v3", "packed"):
+            d = min(2 * self.bin_top, BIN)
+            deeper = d if d > self.bin_top else None
+
+        def run(sel, impl, bin_top):
+            return self._fetch(*self._search_batch(
+                upload(Qpack[sel], self.device), sn, n, k,
+                impl=impl, bin_top=bin_top, level2=False,
+            ))
+
+        return rerun_suspect_ladder(
+            suspects, ids_out, dists_out, self.query_batch, deeper,
+            self.scan_impl, run,
+        )

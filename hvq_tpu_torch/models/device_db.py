@@ -1,0 +1,163 @@
+"""Device-resident database layout: the counterpart of
+``hvq_tpu.models.device_db``.
+
+* ``Vp``      (n_pad, 128) fp32 — vectors zero-padded from 100 to 128 lanes,
+* ``C``, ``T`` (n_pad,) fp32   — categorical and timestamp attributes,
+* ``d_norms`` (n_pad,) fp32    — ‖d‖², computed on the device from ``Vp``,
+* ``V_scan``  (n_pad, 128) bf16, optional — the scan plane that only the
+  selection scan reads; refinement keeps gathering exact fp32 ``Vp`` rows.
+
+Rows are padded to a multiple of the database tile; padding rows are
+masked by the ``id < sn`` term of the predicate. Host arrays reach the
+device through pinned memory on a CUDA device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from hvq_tpu import constants as _c
+from hvq_tpu.utils.formats import Dataset
+
+
+def resolve_device(device: torch.device | str) -> torch.device:
+    """The device with its index spelled out ("cuda" → "cuda:<current>")."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def upload(host: np.ndarray | torch.Tensor, device: torch.device) -> torch.Tensor:
+    """Host array → device tensor, through a pinned buffer on CUDA."""
+    if isinstance(host, np.ndarray):
+        if not host.flags.writeable:       # e.g. a view of another engine's
+            host = host.copy()             # buffer; torch wants to own it
+        host = torch.from_numpy(np.ascontiguousarray(host))
+    if device.type != "cuda":
+        return host.to(device)
+    if not host.is_pinned():
+        host = host.pin_memory()
+    out = host.to(device, non_blocking=True)
+    torch.cuda.current_stream(device).synchronize()   # the buffer may go now
+    return out
+
+
+def _host_zeros(shape, device: torch.device) -> torch.Tensor:
+    """Zeroed fp32 host buffer, pinned when it is bound for a CUDA device."""
+    return torch.zeros(shape, dtype=torch.float32,
+                       pin_memory=device.type == "cuda")
+
+
+@dataclasses.dataclass
+class DeviceDB:
+    Vp: torch.Tensor        # (n_pad, 128) fp32
+    C: torch.Tensor         # (n_pad,) fp32
+    T: torch.Tensor         # (n_pad,) fp32
+    d_norms: torch.Tensor   # (n_pad,) fp32
+    n: int                  # true row count
+    db_tile: int
+    V_scan: Optional[torch.Tensor] = None   # (n_pad, 128) bf16 scan plane
+
+    @property
+    def n_pad(self) -> int:
+        return self.Vp.shape[0]
+
+    @property
+    def num_tiles(self) -> int:
+        return self.n_pad // self.db_tile
+
+    @property
+    def device(self) -> torch.device:
+        return self.Vp.device
+
+    @property
+    def scan_V(self) -> torch.Tensor:
+        """The plane the selection scan reads (bf16 if present, else Vp)."""
+        return self.V_scan if self.V_scan is not None else self.Vp
+
+    @classmethod
+    def from_dataset(
+        cls,
+        ds: Dataset,
+        db_tile: int = 16384,
+        scan_store: str = "fp32",
+        device: torch.device | str = "cpu",
+    ) -> "DeviceDB":
+        """Upload a host Dataset, lane-padding columns and tile-padding rows.
+
+        ``scan_store="bf16"`` also keeps a bf16 copy for the selection scan,
+        rounded on the device.
+        """
+        if scan_store not in ("fp32", "bf16"):
+            raise ValueError(f"unknown scan_store {scan_store!r}")
+        device = resolve_device(device)
+        n = ds.n
+        n_pad = -(-n // db_tile) * db_tile
+        # one padded host buffer per column, filled in place
+        Vp = _host_zeros((n_pad, _c.PADDED_DIM), device)
+        Vp.numpy()[:n, : ds.V.shape[1]] = ds.V
+        C = _host_zeros(n_pad, device)
+        C.numpy()[:n] = ds.C
+        T = _host_zeros(n_pad, device)
+        T.numpy()[:n] = ds.T
+        Vp_dev = upload(Vp, device)
+        del Vp
+        return cls(
+            Vp=Vp_dev,
+            C=upload(C, device),
+            T=upload(T, device),
+            d_norms=(Vp_dev * Vp_dev).sum(dim=1),
+            n=n,
+            db_tile=db_tile,
+            V_scan=Vp_dev.to(torch.bfloat16) if scan_store == "bf16" else None,
+        )
+
+    @classmethod
+    def from_arrays(
+        cls,
+        Vp: np.ndarray,
+        C: np.ndarray,
+        T: np.ndarray,
+        d_norms: np.ndarray,
+        n: int,
+        db_tile: int,
+        V_scan: np.ndarray | None = None,
+        device: torch.device | str = "cpu",
+    ) -> "DeviceDB":
+        """A database from arrays another engine already laid out.
+
+        E.g. ``np.asarray(jax_db.Vp)``: the JAX ``DeviceDB``'s own padded
+        rows, device-computed ``d_norms`` and bf16 ``V_scan`` carry over
+        unchanged, so both packages search identical stored state.
+        ``V_scan`` may be any dtype that converts to fp32 exactly
+        (bfloat16 or bf16-valued fp32); it is stored as bf16.
+        """
+        device = resolve_device(device)
+        Vp = np.asarray(Vp, np.float32)
+        if Vp.ndim != 2 or Vp.shape[1] != _c.PADDED_DIM:
+            raise ValueError(f"Vp must be (n_pad, {_c.PADDED_DIM}), got {Vp.shape}")
+        n_pad = Vp.shape[0]
+        if n_pad % db_tile or not 0 < n <= n_pad:
+            raise ValueError(f"n_pad {n_pad} must cover n {n} in {db_tile}-row tiles")
+        cols = [np.asarray(x, np.float32) for x in (C, T, d_norms)]
+        if any(x.shape != (n_pad,) for x in cols):
+            raise ValueError(f"C, T, d_norms must be ({n_pad},)")
+        scan = None
+        if V_scan is not None:
+            v32 = torch.from_numpy(np.ascontiguousarray(V_scan, np.float32))
+            if v32.shape != Vp.shape:
+                raise ValueError(f"V_scan must be {Vp.shape}, got {tuple(v32.shape)}")
+            v16 = v32.to(torch.bfloat16)
+            if not torch.equal(v16.float(), v32):
+                raise ValueError("V_scan holds values that bf16 cannot represent")
+            scan = upload(v16, device)
+        C_dev, T_dev, dn_dev = (upload(x, device) for x in cols)
+        return cls(
+            Vp=upload(Vp, device), C=C_dev, T=T_dev, d_norms=dn_dev, n=int(n),
+            db_tile=int(db_tile), V_scan=scan,
+        )

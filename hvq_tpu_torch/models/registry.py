@@ -1,0 +1,34 @@
+"""Runtime engine registry: the counterpart of ``hvq_tpu.models.registry``.
+
+Engine protocol::
+
+    engine = get_engine(name)(dataset, device="cuda", **kwargs)
+    ids, dists = engine.search(queries, k=100, sample_proportion=1.0)
+
+``ids``: (m, k) uint32 neighbour ids ascending by distance; ``dists``:
+(m, k) float32 exact distances. Engines import lazily, so importing the
+registry loads no engine module.
+"""
+
+from __future__ import annotations
+
+import importlib
+from typing import Callable
+
+# name → (module, class). The oracle is the JAX package's NumPy oracle,
+# which imports no jax; it accepts and ignores ``device=``.
+_ENGINES = {
+    "batched": ("hvq_tpu_torch.models.batched", "BatchedEngine"),
+    "oracle": ("hvq_tpu.models.oracle", "OracleEngine"),
+}
+
+
+def get_engine(name: str) -> Callable:
+    if name not in _ENGINES:
+        raise KeyError(f"unknown engine {name!r}; available: {sorted(_ENGINES)}")
+    module, cls = _ENGINES[name]
+    return getattr(importlib.import_module(module), cls)
+
+
+def available_engines() -> list[str]:
+    return sorted(_ENGINES)

@@ -1,0 +1,88 @@
+"""Top-k primitives: the PyTorch counterpart of ``hvq_tpu.ops.topk``.
+
+Smaller distance = better throughout; +inf marks empty or masked slots.
+``torch.topk`` does not promise JAX's stable tie order (``lax.top_k`` keeps
+the lower index first); callers compare distances, never raw ids, so only
+which of two EQUAL scores survives a cut can differ.
+"""
+
+from __future__ import annotations
+
+import torch
+
+BIN = 128
+INF_KEY = 0x7F800000   # bit pattern of +inf with payload 0
+KEY_MASK = ~0x7F       # clears the 7 payload bits of a packed key
+
+
+def smallest_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(values, indices) of the k smallest entries per row, ascending."""
+    return torch.topk(x, k, dim=1, largest=False, sorted=True)
+
+
+def merge_topk(
+    carry_scores: torch.Tensor,  # (B, k') +inf = empty
+    carry_ids: torch.Tensor,     # (B, k') int32
+    tile_scores: torch.Tensor,   # (B, Dt)
+    tile_ids: torch.Tensor,      # (B, Dt) int32
+    kprime: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One streaming-scan step: best k' of carry ∪ tile per query row
+    (the JAX package's ``strategy="topk"``)."""
+    scores = torch.cat([carry_scores, tile_scores], dim=1)
+    ids = torch.cat([carry_ids, tile_ids], dim=1)
+    top, idx = smallest_k(scores, kprime)
+    return top, torch.gather(ids, 1, idx)
+
+
+def final_topk(scores: torch.Tensor, ids: torch.Tensor, k: int):
+    """Exact top-k with ids, ascending by score."""
+    top, idx = smallest_k(scores, k)
+    return top, torch.gather(ids, 1, idx)
+
+
+def binned_stream_topk(
+    out_s: torch.Tensor,  # (B, W) candidate stream, non-negative, +inf empty
+    out_i: torch.Tensor,  # (B, W) candidate positions
+    kp: int,
+    rounds: int = 8,
+):
+    """Level-2 packed bin reduce before the final candidate top-k.
+
+    The axis1 layout of ``hvq_tpu.ops.topk.binned_stream_topk``: bins are
+    the strided column groups {b, b+bins2, …}, each reduced to its best
+    ``rounds`` packed keys, then one top-k over the reduced stream.
+    Returns (scores (B, kp), ids (B, kp), worst2 (B,)), where worst2 is
+    the min over bins of the ``rounds``-th kept value (+inf where no bin
+    saturated) and feeds the exactness certificate.
+    """
+    B, W = out_s.shape
+    Wp = -(-W // BIN) * BIN
+    if Wp != W:
+        out_s = torch.nn.functional.pad(out_s, (0, Wp - W), value=float("inf"))
+    bins2 = Wp // BIN
+    # the reduced stream must still be able to hold kp candidates
+    rounds = min(max(rounds, -(-kp // bins2)), BIN)
+    lane = torch.arange(BIN, dtype=torch.int32, device=out_s.device)
+    lane = lane.view(1, BIN, 1)
+    packed = (
+        out_s.contiguous().view(torch.int32).view(B, BIN, bins2) & KEY_MASK
+    ) | lane
+    outs = []
+    for rnd in range(rounds):
+        m = packed.amin(dim=1)                       # (B, bins2)
+        outs.append(m)
+        if rnd + 1 < rounds:
+            packed.masked_fill_(lane == (m & 0x7F)[:, None, :], INF_KEY)
+    del packed
+    keys = torch.stack(outs, dim=1)                  # (B, rounds, bins2)
+    worst2 = (keys[:, -1, :] & KEY_MASK).view(torch.float32).amin(dim=1)
+    colb = torch.arange(bins2, dtype=torch.int32, device=out_s.device)
+    col = ((keys & 0x7F) * bins2 + colb).reshape(B, rounds * bins2)
+    d2 = (keys & KEY_MASK).view(torch.float32).reshape(B, rounds * bins2)
+    kp = min(kp, rounds * bins2)
+    top, idx = smallest_k(d2, kp)
+    sel_col = torch.gather(col, 1, idx)
+    # padding columns carry +inf scores and clip safely into [0, W)
+    gids = torch.gather(out_i, 1, sel_col.clamp(max=W - 1).long())
+    return top, gids, worst2

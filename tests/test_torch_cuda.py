@@ -1,0 +1,128 @@
+"""Card-only tests of the port: the CUDA kernel K1 against its plain version.
+
+A CUDA kernel has no CPU mode, so every test here is marked ``cuda`` and
+skips where no NVIDIA GPU is present. On a GPU machine with nvcc:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+(``--noconftest``: tests/conftest.py configures jax, which this file does
+not use and such a machine need not have.)
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from hvq_tpu_torch.ops import kernels
+from hvq_tpu_torch.ops.masks import query_predicate_fields
+from hvq_tpu_torch.ops.scan import packed_scan_plain
+from hvq_tpu_torch.utils.check import scan_agreement
+
+REL_MM = 1.6e-5   # the fp32-plane certificate slack (models.batched)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    return torch.device("cuda")
+
+
+def _inputs(device, plane="fp32", n_pad=32768, B=40, seed=3):
+    rng = np.random.default_rng(seed)
+    V = rng.uniform(-6, 6, (n_pad, 128)).astype(np.float32)
+    V[:, 100:] = 0.0
+    qV = rng.uniform(-6, 6, (B, 128)).astype(np.float32)
+    qV[:, 100:] = 0.0
+    Vf = torch.from_numpy(V).to(device)
+    t = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(device)
+    fields = query_predicate_fields(
+        t(rng.integers(0, 4, B)), t(rng.integers(0, 4, B)),
+        t(rng.uniform(-3, 0, B)), t(rng.uniform(0, 3, B)),
+    )
+    return (
+        Vf.to(torch.bfloat16) if plane == "bf16" else Vf,
+        t(rng.integers(0, 4, n_pad)), t(rng.uniform(-3, 3, n_pad)),
+        (Vf * Vf).sum(1), torch.arange(n_pad, dtype=torch.int32, device=device),
+        t(qV), *fields,
+    )
+
+
+def _agree(args, sn, **kw):
+    d_k, p_k = kernels.packed_scan_v3(*args, sn, **kw)
+    d_p, p_p = packed_scan_plain(*args, sn, **kw)
+    torch.cuda.synchronize()
+    qV, dn = args[5], args[3]
+    return scan_agreement(d_k, p_k, d_p, p_p, kw["bin_top"],
+                          kw["db_tile"] // 128, (qV * qV).sum(1),
+                          float(dn.max()), REL_MM)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plane", ["fp32", "bf16"])
+@pytest.mark.parametrize("db_tile,R", [(1024, 1), (1024, 3), (16384, 3),
+                                       (1024, 128)])
+def test_kernel_matches_plain(cuda, plane, db_tile, R):
+    args = _inputs(cuda, plane)
+    a = _agree(args, 30000, db_tile=db_tile, bin_top=R)
+    assert a["ok"], a
+
+
+@pytest.mark.cuda
+def test_kernel_window_matches_plain(cuda):
+    args = _inputs(cuda)
+    a = _agree(args, 30000, db_tile=1024, bin_top=2, row0=4096, ntw=5)
+    assert a["ok"], a
+    _, pos = kernels.packed_scan_v3(*args, 30000, db_tile=1024, bin_top=2,
+                                    row0=4096, ntw=5)
+    assert int(pos.min()) >= 4096 and int(pos.max()) < 4096 + 5 * 1024
+
+
+@pytest.mark.cuda
+def test_kernel_counts_only_its_launches(cuda):
+    args = _inputs(cuda)
+    kernels.reset_launches()
+    kernels.packed_scan_v3(*args, 100, db_tile=1024, bin_top=2)
+    packed_scan_plain(*args, 100, db_tile=1024, bin_top=2)
+    assert kernels.launches["packed_scan_v3"] == 1
+
+
+@pytest.mark.cuda
+def test_kernel_wrapper_raises_instead_of_falling_back(cuda):
+    args = list(_inputs(cuda))
+    with pytest.raises(TypeError):
+        kernels.packed_scan_v3(args[0].double(), *args[1:], 100,
+                               db_tile=1024, bin_top=2)
+    with pytest.raises(ValueError):
+        kernels.packed_scan_v3(*args[:5], args[5].t().contiguous().t(),
+                               *args[6:], 100, db_tile=1024, bin_top=2)
+    with pytest.raises(ValueError):
+        kernels.packed_scan_v3(*args[:5], args[5].cpu(), *args[6:], 100,
+                               db_tile=1024, bin_top=2)
+
+
+@pytest.mark.cuda
+def test_engine_on_cuda_matches_oracle(cuda):
+    from hvq_tpu.models.oracle import search_oracle
+    from hvq_tpu.utils.compare import compare_distances, recall_at_k
+    from hvq_tpu.utils.formats import recompute_result_distances
+    from hvq_tpu.utils.generators import generate_dataset, generate_queries
+    from hvq_tpu_torch import get_engine
+
+    ds = generate_dataset(40000, seed=8, categories=30)
+    qs = generate_queries(48, seed=9, categories=30)
+    for store in ("fp32", "bf16"):
+        kernels.reset_launches()
+        eng = get_engine("batched")(ds, device=cuda, query_batch=32,
+                                    scan_store=store)
+        ids, dists = eng.search(qs)
+        assert kernels.launches["packed_scan_v3"] >= 2
+        oids, odists = search_oracle(ds, qs)
+        assert recall_at_k(ids, oids, dists, odists) == 1.0
+        res = compare_distances(
+            recompute_result_distances(ds, qs, ids.astype(np.int64)),
+            recompute_result_distances(ds, qs, oids.astype(np.int64)),
+        )
+        assert res.ok, res
