@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch port's main paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -7,19 +7,26 @@ Phases, in order; any failure exits non-zero with a traceback:
 
 1. probe: a CUDA device must be present (there is no CPU path); prints
    the card's name and power limit, torch, CUDA and nvcc versions;
-2. build: compiles the CUDA kernel K1 from ``hvq_tpu_torch/csrc``;
-3. kernel vs plain: K1 against its plain PyTorch version on the card,
-   over both scan planes, several bin depths R and tile sizes, a window,
-   mixed predicates and a sample limit;
-4. main path at D=10⁶ rows, fp32 scan plane: the batched engine on 10⁴
-   mixed queries, checked against the NumPy oracle (64 queries: recall@100
-   = 1.0, recomputed .dist within 0.002) and, for every query, against the
-   streaming exact path; K1 timed beside its plain version at the
-   main-path shape;
-5. main path at D=10⁷ rows, bf16 scan plane: the same.
+2. build: compiles the CUDA kernels K1–K4 from ``hvq_tpu_torch/csrc``
+   into one library and prints ptxas' registers and spills per kernel;
+3. kernel vs plain: each kernel against its plain PyTorch version on the
+   card — K1 over both scan planes, bin depths R, tiles, windows, mixed
+   predicates and a sample limit; K3 and K2 over R and tiles with a
+   sample limit and a permuted ``oid``; K4 over R and tiles, a permuted
+   ``oid`` and a predicate that empties whole bins (padding ids);
+4. main paths at D=10⁶ rows: one dataset, its 64-query oracle answer and
+   the streaming exact path's answer for all 10⁴ mixed queries, computed
+   once; then the batched engine with K1 (``scan_impl="v3"``, fp32 plane),
+   K3 (``"v1"``) and K2 (``"v2"``), each held to both answers, with its
+   launch counts, ladder, fenced phases and its kernel timed beside its
+   plain version at the main-path shape;
+5. K4 at B=1024 over the same rows (Dt=2048, R=2, its own defaults): K4
+   has no engine, so this call is its path; timed beside its plain version;
+6. main path at D=10⁷ rows, bf16 scan plane, through K1: the same checks.
 
-The last three lines are the card (``nvidia-smi`` name, power limit), a
-JSON object describing each kernel of the path, and
+Each path runs with the launch counts set to 0 just before it and read
+just after. The last three lines are the card (``nvidia-smi`` name, power
+limit), a JSON object describing each kernel, and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -43,19 +50,29 @@ from hvq_tpu.utils.formats import QuerySet, recompute_result_distances  # noqa: 
 from hvq_tpu.utils.generators import generate_dataset, generate_queries  # noqa: E402
 from hvq_tpu_torch import get_engine  # noqa: E402
 from hvq_tpu_torch.models import batched  # noqa: E402
+from hvq_tpu_torch.models.device_db import DeviceDB  # noqa: E402
 from hvq_tpu_torch.ops import kernels  # noqa: E402
 from hvq_tpu_torch.ops.distance import require_ieee_fp32  # noqa: E402
 from hvq_tpu_torch.ops.masks import query_predicate_fields  # noqa: E402
-from hvq_tpu_torch.ops.scan import packed_scan_plain  # noqa: E402
-from hvq_tpu_torch.utils.check import scan_agreement  # noqa: E402
+from hvq_tpu_torch.utils.check import bin_scan_agreement, scan_agreement  # noqa: E402
 from hvq_tpu_torch.utils.timing import PhaseTimer  # noqa: E402
 
 DEV = torch.device("cuda")
-K1 = dict(
-    name="packed_scan_v3", route="cuda",
-    source="hvq_tpu_torch/csrc/packed_scan_v3.cu",
-    replaces="hvq_tpu/ops/pallas_scan.py:1021",
-)
+_LANE_SRC = "hvq_tpu_torch/csrc/lane_scan.cu"
+# Each kernel by its wrapper's name (the key of kernels.launches and
+# kernels.plain): its source and the TPU kernel's entry function.
+KERNELS = {
+    "packed_scan_v3": dict(source="hvq_tpu_torch/csrc/packed_scan_v3.cu",
+                           replaces="hvq_tpu/ops/pallas_scan.py:1021"),
+    "packed_scan": dict(source=_LANE_SRC,
+                        replaces="hvq_tpu/ops/pallas_scan.py:633"),
+    "packed_scan_v2": dict(source=_LANE_SRC,
+                           replaces="hvq_tpu/ops/pallas_scan.py:824"),
+    "bin_scan": dict(source=_LANE_SRC,
+                     replaces="hvq_tpu/ops/pallas_scan.py:164"),
+}
+# The kernel each of the engine's kernel scan_impls launches.
+IMPL_KERNEL = {"v3": "packed_scan_v3", "v1": "packed_scan", "v2": "packed_scan_v2"}
 M_QUERIES = 10_000
 CATEGORIES = 1000
 
@@ -93,38 +110,41 @@ def build() -> None:
     log(f"build: {time.perf_counter() - t0:.2f} s (nvcc {info['seconds']:.2f} s, "
         f"compiled={info['compiled']}) -> {info['path']}")
     for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
+        if "entry function" in line or "registers" in line or "spill" in line:
             log("  ptxas: " + line.strip())
 
 
-def scan_inputs(Vs, C, T, dn, qV, qtype, v, l, r):
+def scan_inputs(Vs, C, T, dn, qV, qtype, v, l, r, oid=None):
     """Device tensors of one scan call from host arrays."""
     t = lambda x, dt=torch.float32: torch.as_tensor(np.asarray(x)).to(DEV, dt)
     fields = query_predicate_fields(t(qtype, torch.int32), t(v), t(l), t(r))
-    oid = torch.arange(Vs.shape[0], dtype=torch.int32, device=DEV)
-    return (Vs, C, T, dn, oid, t(qV), *fields)
+    if oid is None:
+        oid = np.arange(Vs.shape[0])
+    return (Vs, C, T, dn, t(oid, torch.int32), t(qV), *fields)
 
 
-def compare_once(args, sn, db_tile, R, row0=None, ntw=None):
-    """K1 and its plain version on the same inputs; returns the agreement.
+def compare_once(name, args, sn, db_tile, R, **kw):
+    """Kernel ``name`` and its plain version on the same inputs; returns
+    the agreement and the kernel's output.
 
-    Both planes are held to the fp32-plane slack: on the bf16 plane both
-    sides form the same exact bf16·bf16 products and differ only in fp32
-    summation order."""
-    kw = dict(db_tile=db_tile, bin_top=R, row0=row0, ntw=ntw)
-    d_k, p_k = kernels.packed_scan_v3(*args, sn, **kw)
-    d_p, p_p = packed_scan_plain(*args, sn, **kw)
+    Held to the fp32-plane slack: on the bf16 plane both sides form the
+    same exact bf16·bf16 products and differ only in fp32 summation order."""
+    kw.update(db_tile=db_tile, bin_top=R)
+    got = getattr(kernels, name)(*args, sn, **kw)
+    want = kernels.plain[name](*args, sn, **kw)
     torch.cuda.synchronize()
+    check = bin_scan_agreement if name == "bin_scan" else scan_agreement
     qV, dn = args[5], args[3]
-    return scan_agreement(d_k, p_k, d_p, p_p, R, db_tile // 128,
-                          (qV * qV).sum(1), float(dn.max()),
-                          batched._CERT_REL_MM)
+    agree = check(*got, *want, R, db_tile // 128, (qV * qV).sum(1),
+                  float(dn.max()), batched._CERT_REL_MM)
+    if not agree["ok"]:
+        raise AssertionError(f"{name} disagrees with its plain version "
+                             f"[Dt={db_tile} R={R} sn={sn} {kw}]: {agree}")
+    return agree, got
 
 
-def kernel_vs_plain() -> float:
-    """Phase 3: small cases over planes, R, tiles, windows, predicates."""
-    rng = np.random.default_rng(5)
-    n_pad, B = 65536, 100
+def small_problem(seed: int, n_pad: int = 65536, B: int = 100):
+    rng = np.random.default_rng(seed)
     V = rng.uniform(-6, 6, (n_pad, 128)).astype(np.float32)
     V[:, 100:] = 0.0
     qV = rng.uniform(-6, 6, (B, 128)).astype(np.float32)
@@ -133,11 +153,16 @@ def kernel_vs_plain() -> float:
     Vf = torch.from_numpy(V).to(DEV)
     C = torch.from_numpy(rng.integers(0, 4, n_pad).astype(np.float32)).to(DEV)
     T = torch.from_numpy(rng.uniform(-3, 3, n_pad).astype(np.float32)).to(DEV)
-    dn = (Vf * Vf).sum(1)
-    qtype = rng.integers(0, 4, B)
-    v = rng.integers(0, 4, B).astype(np.float32)
-    l = rng.uniform(-3, 0, B).astype(np.float32)
-    r = rng.uniform(0, 3, B).astype(np.float32)
+    preds = (rng.integers(0, 4, B), rng.integers(0, 4, B).astype(np.float32),
+             rng.uniform(-3, 0, B).astype(np.float32),
+             rng.uniform(0, 3, B).astype(np.float32))
+    return rng, Vf, C, T, (Vf * Vf).sum(1), qV, preds
+
+
+def k1_vs_plain() -> float:
+    """Phase 3, K1: small cases over planes, R, tiles, windows, predicates."""
+    _, Vf, C, T, dn, qV, (qtype, v, l, r) = small_problem(5)
+    n_pad, B = Vf.shape[0], qV.shape[0]
     worst = 0.0
     for plane in ("fp32", "bf16"):
         Vs = Vf if plane == "fp32" else Vf.to(torch.bfloat16)
@@ -146,21 +171,70 @@ def kernel_vs_plain() -> float:
         cases += [(1024, R, None, None, 60000) for R in (2, 3, 24, 128)]
         cases += [(1024, 3, 5 * 1024, 7, 60000), (16384, 2, 16384, 2, 50000)]
         for db_tile, R, row0, ntw, sn in cases:
-            a = compare_once(args, sn, db_tile, R, row0, ntw)
-            log(f"  kernel vs plain [{plane} Dt={db_tile} R={R} row0={row0} "
-                f"ntw={ntw} sn={sn}]: ok={a['ok']} max_abs_err={a['max_abs_err']:.3g} "
+            a, _ = compare_once("packed_scan_v3", args, sn, db_tile, R,
+                                row0=row0, ntw=ntw)
+            log(f"  K1 vs plain [{plane} Dt={db_tile} R={R} row0={row0} "
+                f"ntw={ntw} sn={sn}]: max_abs_err={a['max_abs_err']:.3g} "
                 f"tol_ratio={a['tol_ratio']:.3g} same_pos={a['same_pos']:.6f}")
-            if not a["ok"]:
-                raise AssertionError(f"K1 disagrees with its plain version: {a}")
             worst = max(worst, a["max_abs_err"])
     # query 3's exact duplicate (row 17) comes first, at a distance within
     # the matmul slack of 0, and no distance is −0.0 (a negative key)
     args = scan_inputs(Vf, C, T, dn, qV, np.zeros(B), v, l, r)
-    d_k, p_k = kernels.packed_scan_v3(*args, n_pad, db_tile=1024, bin_top=1)
-    i = int(torch.argmin(d_k[3]))
-    slack = batched._CERT_REL_MM * 2 * float((args[5][3] ** 2).sum())
-    assert int(p_k[3, i]) == 17 and 0.0 <= float(d_k[3, i]) <= slack
-    assert not torch.signbit(d_k).any()
+    for name in ("packed_scan_v3", "packed_scan", "packed_scan_v2"):
+        d_k, p_k = getattr(kernels, name)(*args, n_pad, db_tile=1024, bin_top=1)
+        i = int(torch.argmin(d_k[3]))
+        slack = batched._CERT_REL_MM * 2 * float((args[5][3] ** 2).sum())
+        assert int(p_k[3, i]) == 17 and 0.0 <= float(d_k[3, i]) <= slack, name
+        assert not torch.signbit(d_k).any(), name
+    return worst
+
+
+def lane_vs_plain() -> dict:
+    """Phase 3, K3/K2/K4: R, tiles, sample limits, permuted oid, emptied bins."""
+    rng, Vf, C, T, dn, qV, (qtype, v, l, r) = small_problem(6)
+    n_pad = Vf.shape[0]
+    args = scan_inputs(Vf, C, T, dn, qV, qtype, v, l, r)
+    perm = rng.permutation(n_pad)
+    args_perm = scan_inputs(Vf, C, T, dn, qV, qtype, v, l, r, oid=perm)
+    worst = dict.fromkeys(("packed_scan", "packed_scan_v2", "bin_scan"), 0.0)
+
+    def case(name, a, sn, db_tile, R, tag=""):
+        agree, got = compare_once(name, a, sn, db_tile, R)
+        log(f"  {name} vs plain [Dt={db_tile} R={R} sn={sn}{tag}]: "
+            f"max_abs_err={agree['max_abs_err']:.3g} tol_ratio={agree['tol_ratio']:.3g} "
+            f"same_pos={agree['same_pos']:.6f} finite={agree['n_finite']}")
+        worst[name] = max(worst[name], agree["max_abs_err"])
+        return got
+
+    for name in ("packed_scan", "packed_scan_v2"):
+        for db_tile in (1024, 8192):
+            for R in (1, 2, 3, 4, 8, 32, 128):
+                case(name, args, 60000, db_tile, R)
+        # the sample mask reads oid: every kept row has oid < sn, and rows at
+        # positions ≥ sn are kept
+        d, p = case(name, args_perm, 30000, 8192, 4, " oid permuted")
+        kept = p[torch.isfinite(d)].long()
+        oid = args_perm[4]
+        assert bool((oid[kept] < 30000).all()) and bool((kept >= 30000).any()), name
+    for db_tile in (128, 2048, 8192):
+        for R in (1, 2, 3, 8):
+            case("bin_scan", args, 60000, db_tile, R)
+    s, i = case("bin_scan", args_perm, 30000, 2048, 3, " oid permuted")
+    assert bool((i[torch.isfinite(s)] < 30000).all())
+    # T constant per bin, every query a type-2 range over a tenth of the bin
+    # values: whole bins are empty, and their R entries are (+inf, oid of
+    # the bin's lane 0)
+    Tb = torch.arange(n_pad, device=DEV).div(128, rounding_mode="floor")
+    Tb = (Tb % 50).float()
+    B = qV.shape[0]
+    args_bins = scan_inputs(Vf, C, Tb, dn, qV, np.full(B, 2), v,
+                            np.full(B, 10.0), np.full(B, 14.0), oid=perm)
+    s, i = case("bin_scan", args_bins, 50000, 2048, 8, " bins emptied")
+    row0 = torch.arange(s.shape[1], device=DEV)
+    row0 = (row0 // (8 * 16)) * 2048 + (row0 % 16) * 128
+    pad = ~torch.isfinite(s)
+    assert bool(pad.any())
+    assert torch.equal(i[pad], args_bins[4][row0.expand_as(s)[pad]])
     return worst
 
 
@@ -176,56 +250,80 @@ def time_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
-def main_path(n: int, scan_store: str, seed: int) -> dict:
-    tag = f"D={n:.0e} {scan_store}"
-    t0 = time.perf_counter()
-    ds = generate_dataset(n, seed=seed, categories=CATEGORIES)
-    qs = generate_queries(M_QUERIES, seed=seed + 1, categories=CATEGORIES)
-    log(f"[{tag}] data {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    eng = get_engine("batched")(ds, device=DEV, scan_store=scan_store)
-    torch.cuda.synchronize()
-    log(f"[{tag}] engine build {time.perf_counter() - t0:.1f} s: n_pad={eng.db.n_pad} "
-        f"db_tile={eng.db.db_tile} R={eng.bin_top} k'={eng.kprime} "
-        f"B={eng.query_batch} scan_impl={eng.scan_impl} certified={eng.certified}")
-    assert eng.scan_impl == "v3" and eng.certified
-
-    # K1 vs plain at the main-path shape (first query batch)
-    db, B = eng.db, eng.query_batch
+def first_batch(qs, B):
+    """(qV (B, 128), predicate fields) of the first B queries, on the card."""
     Qp = batched.pack_query_block(qs.V[:B], qs.qtype[:B], qs.v[:B], qs.l[:B],
                                   qs.r[:B])
     qV = torch.zeros((B, 128), device=DEV)
     qV[:, :100] = torch.from_numpy(Qp[:, :100]).to(DEV)
     fields = query_predicate_fields(*(torch.from_numpy(Qp[:, 100 + j].copy()).to(DEV)
                                       for j in range(4)))
-    args = (db.scan_V, db.C, db.T, db.d_norms, eng._pos, qV, *fields, n)
+    return qV, fields
+
+
+def references(tag, ds, qs, db) -> dict:
+    """The 64-query oracle answer and every query's streaming-path answer."""
+    t0 = time.perf_counter()
+    sub = QuerySet(qtype=qs.qtype[:64], v=qs.v[:64], l=qs.l[:64], r=qs.r[:64],
+                   V=qs.V[:64])
+    oids, odists = search_oracle_batched(ds, sub)
+    log(f"[{tag}] oracle, 64 queries: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    stream = get_engine("batched")(ds, device=DEV, device_db=db, scan_impl="stream")
+    s_ids, _ = stream.search(qs)
+    s_d = recompute_result_distances(ds, qs, s_ids.astype(np.int64))
+    log(f"[{tag}] stream path, all {qs.m} queries: {time.perf_counter() - t0:.1f} s")
+    return dict(sub=sub, oids=oids, odists=odists,
+                oracle_d=recompute_result_distances(ds, sub, oids.astype(np.int64)),
+                stream_d=s_d)
+
+
+def run_engine(tag, eng, ds, qs, ref, seed) -> dict:
+    """One engine's main path: its kernel at the main-path shape, warm-up,
+    the timed search with its launch counts, a fenced phase run, and the
+    oracle and streaming checks."""
+    db, B, n = eng.db, eng.query_batch, ds.n
+    name = IMPL_KERNEL[eng.scan_impl]
+    log(f"[{tag}] engine: n_pad={db.n_pad} db_tile={db.db_tile} R={eng.bin_top} "
+        f"k'={eng.kprime} B={B} scan_impl={eng.scan_impl} layout={eng.scan_layout} "
+        f"certified={eng.certified}")
+    assert eng.certified
+
+    # the kernel against its plain version at the main-path shape
+    qV, fields = first_batch(qs, B)
+    plane = db.scan_V if name == "packed_scan_v3" else db.Vp
+    args = (plane, db.C, db.T, db.d_norms, eng._pos, qV, *fields, n)
     kw = dict(db_tile=db.db_tile, bin_top=eng.bin_top)
-    d_k, p_k = kernels.packed_scan_v3(*args, **kw)
-    d_p, p_p = packed_scan_plain(*args, **kw)
-    agree = scan_agreement(d_k, p_k, d_p, p_p, eng.bin_top, db.db_tile // 128,
+    got = getattr(kernels, name)(*args, **kw)
+    want = kernels.plain[name](*args, **kw)
+    agree = scan_agreement(*got, *want, eng.bin_top, db.db_tile // 128,
                            (qV * qV).sum(1), eng._dn_max, eng._rel_mm)
-    del d_k, p_k, d_p, p_p
-    log(f"[{tag}] K1 vs plain at B={B}: {agree}")
+    del got, want
+    log(f"[{tag}] {name} vs plain at B={B}: {agree}")
     assert agree["ok"], agree
     reps = 10 if n <= 2_000_000 else 3
-    ms = time_ms(lambda: kernels.packed_scan_v3(*args, **kw), reps)
-    plain_ms = time_ms(lambda: packed_scan_plain(*args, **kw), reps)
-    log(f"[{tag}] K1 {ms:.3f} ms/call, plain {plain_ms:.3f} ms/call "
+    ms = time_ms(lambda: getattr(kernels, name)(*args, **kw), reps)
+    plain_ms = time_ms(lambda: kernels.plain[name](*args, **kw), reps)
+    log(f"[{tag}] {name} {ms:.3f} ms/call, plain {plain_ms:.3f} ms/call "
         f"(B={B}, Dt={db.db_tile}, R={eng.bin_top}, n_pad={db.n_pad})")
 
-    # warm-up, then the timed main path with the launch count around it
+    # warm-up, then the timed main path with the launch counts around it
     eng.search(generate_queries(B, seed=seed + 2, categories=CATEGORIES))
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.perf_counter()
     ids, dists = eng.search(qs)
     wall = time.perf_counter() - t0
-    launches = kernels.launches["packed_scan_v3"]
+    launches = dict(kernels.launches)
     ladder = dict(eng.last_ladder)
-    n_batches = -(-qs.m // B)
     log(f"[{tag}] search {qs.m} queries: {wall:.3f} s = {qs.m / wall:.1f} QPS; "
-        f"K1 launches {launches}; ladder {ladder}")
-    assert launches == n_batches + ladder.get("rung1_runs", 0), launches
+        f"launches {launches}; ladder {ladder}")
+    want_launches = dict.fromkeys(kernels.launches, 0)
+    want_launches[name] += -(-qs.m // B)
+    # rung 1 is the packed scan in scan_layout: K1 for axis1, K2 for lane
+    rung1 = "packed_scan_v3" if eng.scan_layout == "axis1" else "packed_scan_v2"
+    want_launches[rung1] += ladder.get("rung1_runs", 0)
+    assert launches == want_launches, (launches, want_launches)
     if ladder["suspects"]:
         assert ladder["rung1_runs"] >= 1
         assert ladder["rung1_bin_top"] == 2 * eng.bin_top, ladder
@@ -236,53 +334,121 @@ def main_path(n: int, scan_store: str, seed: int) -> dict:
     eng.search(qs, phases=phases)
     log(f"[{tag}] phases (fenced run): {json.dumps(phases.as_dict())}")
 
-    # 64-query oracle check
-    t0 = time.perf_counter()
-    sub = QuerySet(qtype=qs.qtype[:64], v=qs.v[:64], l=qs.l[:64], r=qs.r[:64],
-                   V=qs.V[:64])
-    oids, odists = search_oracle_batched(ds, sub)
-    rec = recall_at_k(ids[:64], oids, dists[:64], odists)
+    sub = ref["sub"]
+    rec = recall_at_k(ids[:64], ref["oids"], dists[:64], ref["odists"])
     res = compare_distances(
         recompute_result_distances(ds, sub, ids[:64].astype(np.int64)),
-        recompute_result_distances(ds, sub, oids.astype(np.int64)),
-    )
-    log(f"[{tag}] oracle (64 queries, {time.perf_counter() - t0:.1f} s): "
-        f"recall@100={rec} dist={res.status} max|Δ|={res.max_abs_diff}")
+        ref["oracle_d"])
+    log(f"[{tag}] oracle (64 queries): recall@100={rec} dist={res.status} "
+        f"max|Δ|={res.max_abs_diff}")
     assert rec == 1.0 and res.ok, (rec, res)
-
-    # every query against the streaming exact path (a different code path)
-    t0 = time.perf_counter()
-    stream = get_engine("batched")(ds, device=DEV, device_db=db, scan_impl="stream")
-    s_ids, _ = stream.search(qs)
     full = compare_distances(
-        recompute_result_distances(ds, qs, ids.astype(np.int64)),
-        recompute_result_distances(ds, qs, s_ids.astype(np.int64)),
-    )
-    log(f"[{tag}] stream path, all {qs.m} queries ({time.perf_counter() - t0:.1f} s): "
-        f"{full.status} max|Δ|={full.max_abs_diff} beyond={full.num_exceeding}")
+        recompute_result_distances(ds, qs, ids.astype(np.int64)), ref["stream_d"])
+    log(f"[{tag}] vs stream path, all {qs.m} queries: {full.status} "
+        f"max|Δ|={full.max_abs_diff} beyond={full.num_exceeding}")
     assert full.ok, full
-    return dict(qps=qs.m / wall, ms=ms, plain_ms=plain_ms, launches=launches,
-                max_abs_err=agree["max_abs_err"], suspects=ladder["suspects"])
+    return dict(name=name, qps=qs.m / wall, ms=ms, plain_ms=plain_ms,
+                launches=launches, max_abs_err=agree["max_abs_err"],
+                suspects=ladder["suspects"])
+
+
+def k4_path(tag, db, qs) -> dict:
+    """K4 at B=1024 over the database's rows with its own defaults (Dt=2048,
+    R=2): one counted call, held to its plain version, then both timed."""
+    B, R, Dt = 1024, 2, 2048
+    qV, fields = first_batch(qs, B)
+    pos = torch.arange(db.n_pad, dtype=torch.int32, device=DEV)
+    args = (db.Vp, db.C, db.T, db.d_norms, pos, qV, *fields, db.n)
+    kw = dict(db_tile=Dt, bin_top=R)
+    kernels.reset_launches()
+    got = kernels.bin_scan(*args, **kw)
+    torch.cuda.synchronize()
+    launches = kernels.launches["bin_scan"]
+    want = kernels.plain["bin_scan"](*args, **kw)
+    agree = bin_scan_agreement(*got, *want, R, Dt // 128, (qV * qV).sum(1),
+                               float(db.d_norms.max()), batched._CERT_REL_MM)
+    del got, want
+    log(f"[{tag}] bin_scan vs plain at B={B}: {agree}")
+    assert agree["ok"] and launches == 1, (agree, launches)
+    ms = time_ms(lambda: kernels.bin_scan(*args, **kw), 10)
+    plain_ms = time_ms(lambda: kernels.plain["bin_scan"](*args, **kw), 10)
+    log(f"[{tag}] bin_scan {ms:.3f} ms/call, plain {plain_ms:.3f} ms/call "
+        f"(B={B}, Dt={Dt}, R={R}, n_pad={db.n_pad})")
+    return dict(ms=ms, plain_ms=plain_ms, launches=launches,
+                max_abs_err=agree["max_abs_err"])
+
+
+def dataset(n: int, seed: int, tag: str):
+    t0 = time.perf_counter()
+    ds = generate_dataset(n, seed=seed, categories=CATEGORIES)
+    qs = generate_queries(M_QUERIES, seed=seed + 1, categories=CATEGORIES)
+    log(f"[{tag}] data {time.perf_counter() - t0:.1f} s")
+    return ds, qs
+
+
+def paths_d1e6(seed: int = 100) -> dict:
+    """Phases 4–5: K1, K3 and K2 engines and K4 over one D=10⁶ dataset."""
+    tag = "D=1e+06 fp32"
+    ds, qs = dataset(1_000_000, seed, tag)
+    out = {}
+    eng = get_engine("batched")(ds, device=DEV, scan_store="fp32")
+    assert eng.scan_impl == "v3"
+    ref = references(tag, ds, qs, eng.db)
+    out["v3"] = run_engine(f"{tag} v3", eng, ds, qs, ref, seed)
+    del eng
+    lane_db = DeviceDB.from_dataset(ds, db_tile=8192, device=DEV)
+    for impl in ("v1", "v2"):
+        eng = get_engine("batched")(ds, device=DEV, scan_impl=impl,
+                                    device_db=lane_db)
+        assert eng.db.db_tile == 8192 and eng.bin_top == 4
+        out[impl] = run_engine(f"{tag} {impl}", eng, ds, qs, ref, seed)
+        del eng
+    out["k4"] = k4_path(tag, lane_db, qs)
+    return out
+
+
+def path_d1e7(seed: int = 200) -> dict:
+    """Phase 6: K1 on the bf16 plane at D=10⁷."""
+    tag = "D=1e+07 bf16"
+    ds, qs = dataset(10_000_000, seed, tag)
+    eng = get_engine("batched")(ds, device=DEV, scan_store="bf16")
+    assert eng.scan_impl == "v3"
+    ref = references(tag, ds, qs, eng.db)
+    return run_engine(tag, eng, ds, qs, ref, seed)
 
 
 def main() -> int:
     card = probe()
     build()
-    worst = kernel_vs_plain()
-    log(f"kernel vs plain: all cases ok, max_abs_err {worst:.3g}")
-    r6 = main_path(1_000_000, "fp32", seed=100)
+    worst = {"packed_scan_v3": k1_vs_plain()}
+    worst.update(lane_vs_plain())
+    log(f"kernel vs plain: all cases ok, max_abs_err {worst}")
+    r6 = paths_d1e6()
     torch.cuda.empty_cache()
-    r7 = main_path(10_000_000, "bf16", seed=200)
-    # the library's file name carries the hash of the kernel sources and
-    # nvcc flags it was built from
-    k1 = dict(K1, library=os.path.basename(kernels.build_info["path"]),
-              launches=r6["launches"] + r7["launches"],
-              max_abs_err=max(worst, r6["max_abs_err"], r7["max_abs_err"]),
-              ms=r6["ms"], plain_ms=r6["plain_ms"],
-              ms_d1e7_bf16=r7["ms"], plain_ms_d1e7_bf16=r7["plain_ms"],
-              qps_d1e6=r6["qps"], qps_d1e7=r7["qps"])
+    r7 = path_d1e7()
+    library = os.path.basename(kernels.build_info["path"])
+    entries = []
+    for name, impl in (("packed_scan_v3", "v3"), ("packed_scan", "v1"),
+                       ("packed_scan_v2", "v2"), ("bin_scan", None)):
+        e = dict(name=name, route="cuda", **KERNELS[name], library=library)
+        if impl is None:
+            r = r6["k4"]
+            e.update(launches=r["launches"],
+                     max_abs_err=max(worst[name], r["max_abs_err"]),
+                     ms=r["ms"], plain_ms=r["plain_ms"])
+        else:
+            r = r6[impl]
+            paths = [r6["v3"], r6["v1"], r6["v2"], r7]
+            e.update(launches=sum(p["launches"][name] for p in paths),
+                     max_abs_err=max(worst[name], r["max_abs_err"]),
+                     ms=r["ms"], plain_ms=r["plain_ms"], qps=r["qps"])
+        if name == "packed_scan_v3":
+            e.update(max_abs_err=max(e["max_abs_err"], r7["max_abs_err"]),
+                     ms_d1e7_bf16=r7["ms"], plain_ms_d1e7_bf16=r7["plain_ms"],
+                     qps_d1e7=r7["qps"])
+        entries.append(e)
     log(card)
-    log(json.dumps({"kernels": [k1]}))
+    log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,0 +1,446 @@
+// Lane-layout bin scans K3, K2 and K4 for Hopper (sm_90a).
+//
+// Replaces, in hvq_tpu/ops/pallas_scan.py:
+//   K3 fused_packed_scan     (kernel body _make_packed_kernel),
+//   K2 fused_packed_scan_v2  (kernel body _make_packed_kernel_v2),
+//   K4 fused_bin_scan        (kernel body _make_kernel).
+// Plain PyTorch versions beside them: hvq_tpu_torch/ops/scan.py
+// ::packed_scan_plain (layout="lane") and ::bin_scan_plain; Python
+// wrappers and launch counters: hvq_tpu_torch/ops/kernels.py
+// ::packed_scan, ::packed_scan_v2, ::bin_scan.
+//
+// What they compute. In the lane layout bin b of a tile is the 128
+// CONTIGUOUS rows tile·Dt + b·128 + s, s ∈ [0, 128), and the lane s is the
+// payload. With the mask
+//   ok = oid < sn ∧ (¬ac ∨ C == v) ∧ (¬at ∨ l ≤ T ≤ r)
+// K3 and K2 form K1's packed key (packed_scan_v3.cu),
+//   dist = max(‖q‖² + ‖d‖² − 2·q·d, 0),  key = bitcast(dist) & ~0x7F | s,
+// K3 with q·d as IEEE fp32 FMAs in lane order (the TPU kernel maps HIGH to
+// HIGHEST), K2 as the 3-pass bf16 split (q_hi·d_hi + q_hi·d_lo) + q_lo·d_hi
+// with one fp32 accumulator per pass: each bf16·bf16 product is exact in
+// fp32, so only the order of the sum inside a pass differs from the TPU
+// kernel. A bin keeps its R smallest keys ascending, padded with
+// 0x7F800000 (+inf, payload 0), and the output is decoded:
+//   dist[q, tile·R·bins + j·bins + b] = key & ~0x7F   (as fp32)
+//   pos [q, same column]              = tile·Dt + b·128 + (key & 0x7F)
+// K4 is unpacked: score = ‖d‖² − 2·q·d in fp32 FMAs, with no ‖q‖² and no
+// clamp (scores may be negative), +inf where masked. A bin keeps its R
+// smallest (score, lane) pairs, ties to the lowest lane (argmin's first
+// occurrence), padded with (+inf, lane 0) as argmin over an all-+inf bin
+// gives, and reports (score, oid[row]).
+//
+// What bounds it on this card: what bounds K1 (see packed_scan_v3.cu). At
+// the main-path batch (B = 1024) the scan does ~2000 FLOP per database
+// byte, so HBM bytes are not the limit; time follows the FMA work (K2 does
+// three times K3's) and the warps resident per SM that hide each slice's
+// unoverlapped load and two barriers.
+//
+// Design: K1's structure, with the row address of the lane layout. Global
+// bin g = tile·bins + b is rows g·128 + s whatever the tile, so a CTA owns
+// (query block of QB, 64 consecutive global bins), which may span tiles:
+// a small tile (K4's default Dt = 2048 has 16 bins) leaves no thread idle.
+// It streams the 128 slices of its bins; slice s is row g·128 + s of each
+// bin, 64 rows 64 KB apart, each still read as whole 512-byte rows, staged
+// transposed in shared memory. C/T/‖d‖²/oid become one scattered 4-byte load per row (K1 reads
+// them contiguously). Each thread holds a 4×4 register tile of (query,
+// bin) dot products and a running top-R per (query, bin); keys are
+// distinct through the lane, or for K4 ordered by (score, lane) with the
+// lanes arriving in increasing order, so the running top-R equals R min
+// (argmin) rounds bit for bit, padding included. Small R keeps the lists in
+// registers (R ≤ 4 for packed keys, R ≤ 2 for K4's 64-bit keys); larger R
+// keeps them in shared memory (K4: a 32-bit ordered score and an 8-bit
+// lane, 5 bytes an entry) and the launcher halves QB until they fit. K2
+// stages each query and database value as one 32-bit word holding its bf16
+// hi and lo halves, so its shared memory equals K3's; its three
+// accumulators cost registers, so it runs one CTA per SM. Tensor cores
+// (mma/wgmma bf16 for K2) and cp.async/TMA staging are later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace {
+
+constexpr int kSlices = 128;        // rows per bin = payload range
+constexpr int kDim = 128;           // padded vector width
+constexpr int kNB = 64;             // bins per CTA
+constexpr int kNBP = kNB + 4;       // padded smem row of the staged slice
+constexpr int kTQ = 4;              // queries per thread
+constexpr int kTB = 4;              // bins per thread
+constexpr int kInfKey = 0x7F800000;
+constexpr int kKeyMask = ~0x7F;
+constexpr int kMaxQB = 64;
+// Dynamic shared memory a CTA aims to stay under, so two CTAs share an SM.
+constexpr size_t kSmemTarget = 100 * 1024;
+static_assert(kTQ % 4 == 0 && kTB % 4 == 0, "register tiles load float4s");
+static_assert(kNB % kTB == 0 && kNB % 8 == 0, "bin range splits evenly");
+
+// The three kernels; the values are the C entry point's `mode`.
+constexpr int kK3 = 0;   // packed keys, fp32 FMA
+constexpr int kK2 = 1;   // packed keys, 3-pass bf16 split
+constexpr int kK4 = 2;   // unpacked (score, lane), reports oid
+
+template <int MODE> struct KeyOf { using T = int; };
+template <> struct KeyOf<kK4> { using T = unsigned long long; };
+// Largest R whose top-R lives in registers.
+template <int MODE> constexpr int kMaxRegR = MODE == kK4 ? 2 : 4;
+
+// K4's empty entry: +inf (ordered 0xFF800000) at lane 0.
+constexpr unsigned long long kInfPair = 0xFF800000ull << 32;
+template <int MODE> __device__ __forceinline__ typename KeyOf<MODE>::T inf_key() {
+  if constexpr (MODE == kK4) return kInfPair; else return kInfKey;
+}
+
+struct Args {
+  const float* V;
+  const float* C;
+  const float* T;
+  const float* dn;
+  const int* oid;
+  const float* q;
+  const float* qn;
+  const int* ac;
+  const float* v;
+  const int* at;
+  const float* l;
+  const float* r;
+  float* out_d;
+  int* out_i;
+  // bins: per tile; nbins: in all; nbb: 64-bin blocks; nqb: query blocks
+  int sn, B, bins, nbins, R, nt, nbb, nqb, QB;
+};
+
+int entry_bytes(int mode) { return mode == kK4 ? 5 : 4; }
+
+// Shared memory of a CTA: queries, one staged slice, its attributes, and
+// (only when R is not held in registers) the top-R lists.
+size_t smem_bytes(int mode, int QB, int R, bool lists) {
+  return sizeof(float) * ((size_t)kDim * QB + (size_t)kDim * kNBP + 4 * kNB)
+         + (lists ? (size_t)entry_bytes(mode) * QB * kNB * R : 0);
+}
+
+__device__ __forceinline__ void load4(const float* V, long long off, float* x) {
+  float4 t = *reinterpret_cast<const float4*>(V + off);
+  x[0] = t.x; x[1] = t.y; x[2] = t.z; x[3] = t.w;
+}
+
+// K2's staged word: the bf16 hi half of x in the top 16 bits, the bf16
+// rounding of the residual x − hi in the low 16 (the TPU kernel's split).
+__device__ __forceinline__ float split_word(float x) {
+  const __nv_bfloat16 hi = __float2bfloat16_rn(x);
+  const __nv_bfloat16 lo = __float2bfloat16_rn(__fsub_rn(x, __bfloat162float(hi)));
+  return __uint_as_float(((unsigned)__bfloat16_as_ushort(hi) << 16) |
+                         __bfloat16_as_ushort(lo));
+}
+__device__ __forceinline__ float hi_of(float w) {
+  return __uint_as_float(__float_as_uint(w) & 0xFFFF0000u);
+}
+__device__ __forceinline__ float lo_of(float w) {
+  return __uint_as_float(__float_as_uint(w) << 16);
+}
+
+// Order-preserving uint32 image of a float; −0.0 first becomes +0.0, since
+// argmin ties the two.
+__device__ __forceinline__ unsigned ordered(float x) {
+  const unsigned u = __float_as_uint(__fadd_rn(x, 0.f));
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+__device__ __forceinline__ float unordered(unsigned o) {
+  return __uint_as_float((o & 0x80000000u) ? (o & 0x7FFFFFFFu) : ~o);
+}
+
+// Top-R lists in shared memory (R above kMaxRegR).
+struct IntLists {           // packed keys
+  int* key;
+  __device__ int get(int i) const { return key[i]; }
+  __device__ void set(int i, int k) const { key[i] = k; }
+};
+struct PairLists {          // K4: ordered score and lane, 5 bytes an entry
+  unsigned* ord;
+  unsigned char* lane;
+  __device__ unsigned long long get(int i) const {
+    return ((unsigned long long)ord[i] << 32) | lane[i];
+  }
+  __device__ void set(int i, unsigned long long k) const {
+    ord[i] = (unsigned)(k >> 32);
+    lane[i] = (unsigned char)(k & 0x7F);
+  }
+};
+
+// Write entry j (round j) of global bin g for output row q.
+template <int MODE>
+__device__ __forceinline__ void emit(const Args& a, int q, int g, int j,
+                                     typename KeyOf<MODE>::T key) {
+  const int tile = g / a.bins;
+  const long long o = (long long)q * a.nt * a.R * a.bins +
+                      ((long long)tile * a.R + j) * a.bins + (g - tile * a.bins);
+  const long long row0 = (long long)g * kSlices;
+  if constexpr (MODE == kK4) {
+    const int lane = (int)(key & 0x7F);
+    a.out_d[o] = unordered((unsigned)(key >> 32));
+    a.out_i[o] = a.oid[row0 + lane];
+  } else {
+    a.out_d[o] = __int_as_float(key & kKeyMask);
+    a.out_i[o] = (int)(row0 + (key & 0x7F));
+  }
+}
+
+// RR > 0: R == RR, top-R in registers; RR == 0: any R, lists in smem.
+// Register budget for two CTAs per SM; K2's three accumulators get one.
+template <int MODE, int RR>
+__global__ void __launch_bounds__(256, MODE == kK2 ? 1 : 2)
+lane_scan_kernel(Args a) {
+  using Key = typename KeyOf<MODE>::T;
+  using Lists = typename std::conditional<MODE == kK4, PairLists, IntLists>::type;
+  extern __shared__ float smem[];
+  const int QB = a.QB;
+  float* qs = smem;                       // [kDim][QB]   transposed queries
+  float* vs = qs + kDim * QB;             // [kDim][kNBP] transposed slice
+  float* sC = vs + kDim * kNBP;           // [kNB] slice attributes
+  float* sT = sC + kNB;
+  float* sdn = sT + kNB;
+  int* soid = reinterpret_cast<int*>(sdn + kNB);
+  Lists lists;                            // RR == 0: [QB][kNB][R] sorted
+  if constexpr (MODE == kK4) {
+    lists.ord = reinterpret_cast<unsigned*>(soid + kNB);
+    lists.lane = reinterpret_cast<unsigned char*>(lists.ord + QB * kNB * a.R);
+  } else {
+    lists.key = soid + kNB;
+  }
+
+  const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
+  const int tb = tid % (kNB / kTB);
+  const int tq = tid / (kNB / kTB);
+  const int qblk = blockIdx.x % a.nqb;    // query blocks of a slice adjacent
+  const int q0 = qblk * QB;
+  const int g0 = (blockIdx.x / a.nqb) * kNB;
+  const int nq = min(QB, a.B - q0);
+  const int nb = min(kNB, a.nbins - g0);
+  const int R = a.R;
+
+  for (int i = tid; i < QB * kDim; i += nthreads) {
+    const int qq = i / kDim, k = i % kDim;
+    const float x = qq < nq ? a.q[(long long)(q0 + qq) * kDim + k] : 0.f;
+    qs[k * QB + qq] = MODE == kK2 ? split_word(x) : x;
+  }
+  if (RR == 0)
+    for (int i = tid; i < QB * kNB * R; i += nthreads) lists.set(i, inf_key<MODE>());
+
+  float qn[kTQ], qv[kTQ], ql[kTQ], qr[kTQ];
+  bool qok[kTQ], qac[kTQ], qat[kTQ];
+#pragma unroll
+  for (int i = 0; i < kTQ; ++i) {
+    const int qq = tq * kTQ + i;
+    qok[i] = qq < nq;
+    const int g = q0 + (qok[i] ? qq : 0);
+    qn[i] = MODE == kK4 ? 0.f : a.qn[g];
+    qv[i] = a.v[g]; ql[i] = a.l[g]; qr[i] = a.r[g];
+    qac[i] = a.ac[g] != 0; qat[i] = a.at[g] != 0;
+  }
+  // RR > 0: the sorted top-R itself; RR == 0: [0] caches the R-th key
+  constexpr int kRegR = RR > 0 ? RR : 1;
+  Key top[kTQ][kTB][kRegR];
+#pragma unroll
+  for (int i = 0; i < kTQ; ++i)
+#pragma unroll
+    for (int j = 0; j < kTB; ++j)
+#pragma unroll
+      for (int r = 0; r < kRegR; ++r) top[i][j][r] = inf_key<MODE>();
+
+  const long long bin_row = (long long)g0 * kSlices;   // bin g0, lane 0
+  for (int s = 0; s < kSlices; ++s) {
+    __syncthreads();   // last slice's readers are done with vs / attributes
+    // Stage rows bin_row + b·128 + s, b < nb, transposed. A warp reads 8
+    // rows × 4 chunks of 4 lanes: full 32-byte sectors, and the padded smem
+    // row keeps the transposing stores at most 2-way bank-conflicted.
+    for (int i = tid; i < kNB * (kDim / 4); i += nthreads) {
+      const int grp = i / 32, lane = i % 32;
+      const int b = (grp % (kNB / 8)) * 8 + lane % 8;
+      const int c = (grp / (kNB / 8)) * 4 + lane / 8;
+      float x[4] = {0.f, 0.f, 0.f, 0.f};
+      if (b < nb) load4(a.V, (bin_row + (long long)b * kSlices + s) * kDim + 4 * c, x);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        vs[(4 * c + e) * kNBP + b] = MODE == kK2 ? split_word(x[e]) : x[e];
+    }
+    for (int b = tid; b < kNB; b += nthreads) {
+      const bool live = b < nb;
+      const long long row = bin_row + (long long)b * kSlices + s;
+      sC[b] = live ? a.C[row] : 0.f;
+      sT[b] = live ? a.T[row] : 0.f;
+      sdn[b] = live ? a.dn[row] : 0.f;
+      soid[b] = live ? a.oid[row] : 0;
+    }
+    __syncthreads();
+
+    // acc: K3/K4 the fp32 dot, K2 pass hi·hi; acc2/acc3: K2 hi·lo, lo·hi
+    float acc[kTQ][kTB], acc2[kTQ][kTB], acc3[kTQ][kTB];
+#pragma unroll
+    for (int i = 0; i < kTQ; ++i)
+#pragma unroll
+      for (int j = 0; j < kTB; ++j) acc[i][j] = acc2[i][j] = acc3[i][j] = 0.f;
+#pragma unroll 8
+    for (int k = 0; k < kDim; ++k) {
+      float qx[kTQ], vx[kTB];
+#pragma unroll
+      for (int i = 0; i < kTQ; i += 4) load4(qs, k * QB + tq * kTQ + i, qx + i);
+#pragma unroll
+      for (int j = 0; j < kTB; j += 4) load4(vs, k * kNBP + tb * kTB + j, vx + j);
+      if constexpr (MODE == kK2) {
+        float qh[kTQ], qlo[kTQ], vh[kTB], vl[kTB];
+#pragma unroll
+        for (int i = 0; i < kTQ; ++i) { qh[i] = hi_of(qx[i]); qlo[i] = lo_of(qx[i]); }
+#pragma unroll
+        for (int j = 0; j < kTB; ++j) { vh[j] = hi_of(vx[j]); vl[j] = lo_of(vx[j]); }
+#pragma unroll
+        for (int i = 0; i < kTQ; ++i)
+#pragma unroll
+          for (int j = 0; j < kTB; ++j) {
+            acc[i][j] = fmaf(qh[i], vh[j], acc[i][j]);
+            acc2[i][j] = fmaf(qh[i], vl[j], acc2[i][j]);
+            acc3[i][j] = fmaf(qlo[i], vh[j], acc3[i][j]);
+          }
+      } else {
+#pragma unroll
+        for (int i = 0; i < kTQ; ++i)
+#pragma unroll
+          for (int j = 0; j < kTB; ++j) acc[i][j] = fmaf(qx[i], vx[j], acc[i][j]);
+      }
+    }
+
+#pragma unroll
+    for (int j = 0; j < kTB; ++j) {
+      const int b = tb * kTB + j;
+      if (b >= nb) continue;
+      const bool in_sample = soid[b] < a.sn;
+      const float Cb = sC[b], Tb = sT[b], dnb = sdn[b];
+#pragma unroll
+      for (int i = 0; i < kTQ; ++i) {
+        const bool ok = qok[i] && in_sample && (!qac[i] || Cb == qv[i]) &&
+                        (!qat[i] || (Tb >= ql[i] && Tb <= qr[i]));
+        if (!ok) continue;
+        Key key;
+        if constexpr (MODE == kK4) {
+          // ‖d‖² − 2·q·d; a +inf or NaN score never enters (argmin pads)
+          const float sc = __fsub_rn(dnb, __fmul_rn(2.f, acc[i][j]));
+          key = ((unsigned long long)ordered(sc) << 32) | (unsigned)s;
+        } else {
+          const float qd = MODE == kK2
+              ? __fadd_rn(__fadd_rn(acc[i][j], acc2[i][j]), acc3[i][j])
+              : acc[i][j];
+          // (‖d‖² − 2·q·d) + ‖q‖², the TPU kernel's order; `> 0 ? : 0`
+          // maps −0.0 to +0.0, whose key would otherwise sort first
+          float d = __fadd_rn(__fsub_rn(dnb, __fmul_rn(2.f, qd)), qn[i]);
+          d = d > 0.f ? d : 0.f;
+          key = (__float_as_int(d) & kKeyMask) | s;
+        }
+        if (!(key < top[i][j][kRegR - 1])) continue;
+        if constexpr (RR > 0) {
+          Key k = key;   // carry the larger of each pair down the list
+#pragma unroll
+          for (int r = 0; r < RR; ++r) {
+            const Key lo = min(top[i][j][r], k);
+            k = max(top[i][j][r], k);
+            top[i][j][r] = lo;
+          }
+        } else {
+          const int L = ((tq * kTQ + i) * kNB + b) * R;
+          int p = R - 1;
+          while (p > 0 && lists.get(L + p - 1) > key) {
+            lists.set(L + p, lists.get(L + p - 1));
+            --p;
+          }
+          lists.set(L + p, key);
+          top[i][j][0] = lists.get(L + R - 1);
+        }
+      }
+    }
+  }
+  if constexpr (RR > 0) {
+#pragma unroll
+    for (int i = 0; i < kTQ; ++i) {
+      const int qq = tq * kTQ + i;
+#pragma unroll
+      for (int j = 0; j < kTB; ++j) {
+        const int b = tb * kTB + j;
+        if (qq >= nq || b >= nb) continue;
+#pragma unroll
+        for (int r = 0; r < RR; ++r) emit<MODE>(a, q0 + qq, g0 + b, r, top[i][j][r]);
+      }
+    }
+    return;
+  }
+  __syncthreads();
+  for (int i = tid; i < QB * R * kNB; i += nthreads) {
+    const int b = i % kNB;
+    const int j = (i / kNB) % R;
+    const int qq = i / (kNB * R);
+    if (qq >= nq || b >= nb) continue;
+    emit<MODE>(a, q0 + qq, g0 + b, j, lists.get((qq * kNB + b) * R + j));
+  }
+}
+
+template <int MODE, int RR>
+cudaError_t launch_r(const Args& a0, cudaStream_t stream) {
+  Args a = a0;
+  int QB = kMaxQB;
+  while (RR == 0 && QB > kTQ && smem_bytes(MODE, QB, a.R, true) > kSmemTarget) QB /= 2;
+  a.QB = QB;
+  a.nqb = (a.B + QB - 1) / QB;
+  a.nbb = (a.nbins + kNB - 1) / kNB;
+  const size_t smem = smem_bytes(MODE, QB, a.R, RR == 0);
+  const long long blocks = (long long)a.nqb * a.nbb;
+  if (blocks > 0x7FFFFFFFLL) return cudaErrorInvalidConfiguration;
+  cudaError_t e = cudaFuncSetAttribute(
+      lane_scan_kernel<MODE, RR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return e;
+  const int threads = (QB / kTQ) * (kNB / kTB);
+  lane_scan_kernel<MODE, RR><<<(unsigned)blocks, threads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int MODE>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  static_assert(kMaxRegR<MODE> == 2 || kMaxRegR<MODE> == 4, "cases below");
+  if (a.R == 1) return launch_r<MODE, 1>(a, stream);
+  if (a.R == 2) return launch_r<MODE, 2>(a, stream);
+  if constexpr (kMaxRegR<MODE> == 4) {
+    if (a.R == 3) return launch_r<MODE, 3>(a, stream);
+    if (a.R == 4) return launch_r<MODE, 4>(a, stream);
+  }
+  return launch_r<MODE, 0>(a, stream);
+}
+
+}  // namespace
+
+// Plain C entry point for ctypes. mode 0 = K3, 1 = K2, 2 = K4. Pointers are
+// device pointers: V (n_pad, 128) fp32; C, T, dn (n_pad,) fp32, oid
+// (n_pad,) int32; q (B, 128) fp32, qn (B,) fp32 query norms (unused by K4),
+// ac/at (B,) int32 flags, v/l/r (B,) fp32. out_d / out_i are
+// (B, nt·bin_top·db_tile/128), nt = n_pad / db_tile: K3/K2 write dist and
+// row positions, K4 scores and oid. Returns the cudaError_t of the launch
+// (0 on success).
+extern "C" int hvq_lane_scan(
+    int mode, const float* V, const float* C, const float* T,
+    const float* dn, const int* oid, const float* q, const float* qn,
+    const int* ac, const float* v, const int* at, const float* l,
+    const float* r, int sn, int B, int n_pad, int db_tile, int bin_top,
+    float* out_d, int* out_i, void* stream) {
+  if (B < 1 || db_tile < kSlices || db_tile % kSlices || bin_top < 1 ||
+      bin_top > kSlices || n_pad < db_tile || n_pad % db_tile || mode < 0 ||
+      mode > 2)
+    return (int)cudaErrorInvalidValue;
+  Args a{V, C, T, dn, oid, q, qn, ac, v, at, l, r, out_d, out_i,
+         sn, B, db_tile / kSlices, n_pad / kSlices, bin_top, n_pad / db_tile,
+         0, 0, 0};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case kK3: return (int)launch<kK3>(a, s);
+    case kK2: return (int)launch<kK2>(a, s);
+    default: return (int)launch<kK4>(a, s);
+  }
+}

@@ -4,8 +4,9 @@
 The engine batches ``query_batch`` queries into one (B, 128) block and
 runs, per batch:
 
-1. the packed bin scan K1 (``ops.kernels.packed_scan_v3``): masked
-   distances and the best R packed keys per 128-row bin of every tile;
+1. the packed bin scan (K1, or K3/K2 in the lane layout; ``ops.kernels``):
+   masked distances and the best R packed keys per 128-row bin of every
+   tile;
 2. the top-k′ of that candidate stream, through the level-2 packed reduce
    (``ops.topk.binned_stream_topk``) when the stream is wide;
 3. exact fp32 refinement of the k′ survivors, reference tail padding and
@@ -19,10 +20,23 @@ re-run: first through the packed scan at twice the bin depth, then through
 the streaming exact scan (``models.common.scan_database``) for any still
 suspect. See the JAX module for the derivation of the ``_CERT_*`` bounds.
 
-``scan_impl``: ``"v3"`` (the default, also ``"auto"``) is the packed scan
-through K1: its plain PyTorch version on a CPU device, the CUDA kernel on
-a CUDA device. ``"packed"`` is the plain version on any device.
-``"stream"`` is the certified streaming path.
+``scan_impl`` (each kernel runs its plain PyTorch version on a CPU device
+and the CUDA kernel on a CUDA device):
+
+* ``"v3"`` (the default, also ``"auto"``): K1, ``packed_scan_v3``, the
+  axis1 layout on the scan plane, 16384-row tiles;
+* ``"v1"``: K3, ``packed_scan``, the lane layout at fp32 on the fp32
+  ``Vp`` whatever ``scan_store`` says, 8192-row tiles and R from
+  ``kernel_bin_top``;
+* ``"v2"``: K2, ``packed_scan_v2``, as v1 with the 3-pass bf16 split;
+* ``"packed"``: the plain packed scan on any device, in ``scan_layout``;
+* ``"stream"``: the certified streaming path.
+
+The JAX names ``"pallas_v3"``, ``"pallas"``, ``"pallas_v2"``,
+``"xla_packed"`` and ``"xla"`` are accepted for these five
+(``SCAN_ALIASES``). ``scan_layout`` (``"axis1"`` or ``"lane"``, forced to
+axis1 for v3) picks the level-2 reduce's layout and gate and the layout of
+the ladder's first rung, as in the JAX engine.
 """
 
 from __future__ import annotations
@@ -38,7 +52,9 @@ from hvq_tpu_torch.ops import kernels
 from hvq_tpu_torch.ops.distance import require_ieee_fp32
 from hvq_tpu_torch.ops.masks import query_predicate_fields
 from hvq_tpu_torch.ops.scan import (
+    LAYOUTS,
     choose_bin_top,
+    kernel_bin_top,
     last_round_dists,
     packed_scan_plain,
 )
@@ -62,7 +78,14 @@ _CERT_REL_MM_BF16 = 8e-3   # × (‖q‖² + max ‖d‖²), ≈ 2×·2⁻⁸
 # the 3-pass bf16 split (error ≈ 2⁻²¹, inside _CERT_REL_MM).
 _STREAM_PRECISION = "high"
 
-SCAN_IMPLS = ("v3", "packed", "stream")
+SCAN_IMPLS = ("v3", "v1", "v2", "packed", "stream")
+# The JAX engine's scan_impl names, each mapped to the port's.
+SCAN_ALIASES = {
+    "auto": "v3", "pallas_v3": "v3", "pallas": "v1", "pallas_v2": "v2",
+    "xla_packed": "packed", "xla": "stream",
+}
+# The lane-layout kernels: fp32 Vp, 8192-row tiles, R from kernel_bin_top.
+LANE_IMPLS = ("v1", "v2")
 
 
 def pack_query_block(qV: np.ndarray, qtype, v, l, r) -> np.ndarray:
@@ -146,16 +169,24 @@ class BatchedEngine:
         certified: bool = True,
         bin_top: int | None = None,
         scan_store: str = "fp32",
+        scan_layout: str = "axis1",
     ):
         self.device = resolve_device(device)
         require_ieee_fp32(self.device)
-        scan_impl = "v3" if scan_impl == "auto" else scan_impl
+        scan_impl = SCAN_ALIASES.get(scan_impl, scan_impl)
         if scan_impl not in SCAN_IMPLS:
-            raise ValueError(f"unknown scan_impl {scan_impl!r}; one of {SCAN_IMPLS}")
+            raise ValueError(
+                f"unknown scan_impl {scan_impl!r}; one of {SCAN_IMPLS} or "
+                f"{tuple(SCAN_ALIASES)}"
+            )
+        if scan_layout not in LAYOUTS:
+            raise ValueError(f"unknown scan_layout {scan_layout!r}; one of {LAYOUTS}")
+        # K1's output IS the axis1 layout: level 2 and rung 1 must match it
+        self.scan_layout = "axis1" if scan_impl == "v3" else scan_layout
         if device_db is None:
             device_db = DeviceDB.from_dataset(
-                ds, db_tile=db_tile or 16384, scan_store=scan_store,
-                device=self.device,
+                ds, db_tile=db_tile or (8192 if scan_impl in LANE_IMPLS else 16384),
+                scan_store=scan_store, device=self.device,
             )
         elif device_db.device != self.device:
             raise ValueError(
@@ -170,11 +201,14 @@ class BatchedEngine:
         self.kprime = 240 if self._bf16_scan else 128
         self.certified = bool(certified)
         self._rel_mm = _CERT_REL_MM_BF16 if self._bf16_scan else _CERT_REL_MM
-        self.bin_top = (
-            bin_top if bin_top is not None
-            else choose_bin_top(self.db.n_pad, self.kprime,
-                                certified=self.certified)
-        )
+        if bin_top is not None:
+            self.bin_top = bin_top
+        elif scan_impl in LANE_IMPLS:
+            self.bin_top = kernel_bin_top(self.db.db_tile, self.db.n_pad,
+                                          self.kprime, certified=self.certified)
+        else:
+            self.bin_top = choose_bin_top(self.db.n_pad, self.kprime,
+                                          certified=self.certified)
         if self.bin_top is None:
             scan_impl = "stream"
         self.scan_impl = scan_impl
@@ -227,22 +261,32 @@ class BatchedEngine:
                 )
             return f_ids, torch.zeros(B, dtype=torch.bool, device=qV.device), f_d
 
-        scan = kernels.packed_scan_v3 if impl == "v3" else packed_scan_plain
         with maybe_phase(phases, "batch/scan"):
-            out_s, out_i = scan(
-                db.scan_V, db.C, db.T, db.d_norms, self._pos, qV, *fields, sn,
-                db_tile=Dt, bin_top=bin_top,
-            )
+            args = (db.C, db.T, db.d_norms, self._pos, qV, *fields, sn)
+            kw = dict(db_tile=Dt, bin_top=bin_top)
+            if impl == "v3":
+                out_s, out_i = kernels.packed_scan_v3(db.scan_V, *args, **kw)
+            elif impl == "v1":
+                out_s, out_i = kernels.packed_scan(db.Vp, *args, **kw)
+            elif impl == "v2":
+                out_s, out_i = kernels.packed_scan_v2(db.Vp, *args, **kw)
+            else:
+                out_s, out_i = packed_scan_plain(db.scan_V, *args, **kw,
+                                                 layout=self.scan_layout)
         W = out_s.shape[1]
         kp = min(self.kprime, W)
         worst2 = None
         with maybe_phase(phases, "batch/select"):
-            # Level-2 gate: W ≥ 16384 is the axis1 soundness floor — it
-            # keeps ≥ 128 level-2 bins, so the Poisson load per bin stays
-            # ≤ 1 (see the JAX engine). Reruns pass level2=False: one
+            # Level-2 gates (see the JAX engine). W ≥ 16384 keeps ≥ 128
+            # level-2 bins, so the Poisson load per bin stays ≤ 1; the lane
+            # layout's transpose also needs nt ≥ 128 tiles to spread a
+            # tile's near-ties over bins. Reruns pass level2=False: one
             # batch's plain top-k certifies harder.
-            if level2 and W >= 16384:
-                scores, ids, worst2 = binned_stream_topk(out_s, out_i, kp)
+            nt = db.num_tiles
+            if level2 and W >= 16384 and (self.scan_layout == "axis1" or nt >= 128):
+                scores, ids, worst2 = binned_stream_topk(
+                    out_s, out_i, kp, nt=nt, layout=self.scan_layout
+                )
             else:
                 scores, idx = smallest_k(out_s, kp)
                 ids = torch.gather(out_i, 1, idx)
@@ -262,7 +306,7 @@ class BatchedEngine:
                 self._rel_mm * (qnorm + self._dn_max) + _CERT_REL_T * t
                 + _CERT_ABS
             )
-            worst = last_round_dists(out_s, db.num_tiles, bin_top, Dt // BIN)
+            worst = last_round_dists(out_s, nt, bin_top, Dt // BIN)
             suspect = common.cert_suspect(
                 worst.amin(dim=1) < thr,
                 worst2 < thr if worst2 is not None else None,
@@ -321,12 +365,18 @@ class BatchedEngine:
 
     def _rerun_suspects(self, Qpack, suspects, ids_out, dists_out, sn, n, k):
         """Re-run the queries whose certificate failed (see
-        :func:`rerun_suspect_ladder`): rung 1 is this engine's packed scan
-        at 2R, rung 2 the streaming exact scan."""
+        :func:`rerun_suspect_ladder`): rung 1 is the packed scan in
+        ``scan_layout`` at 2R — the JAX engine's ``xla_packed`` rung, which
+        on the kernel route is K1 (axis1) or K2 (lane, exactly the lane
+        ``xla_packed`` at HIGH) — and rung 2 the streaming exact scan."""
         deeper = None
-        if self.scan_impl in ("v3", "packed"):
+        if self.scan_impl != "stream":
             d = min(2 * self.bin_top, BIN)
             deeper = d if d > self.bin_top else None
+        if self.scan_impl == "packed":
+            rung1 = "packed"
+        else:
+            rung1 = "v3" if self.scan_layout == "axis1" else "v2"
 
         def run(sel, impl, bin_top):
             return self._fetch(*self._search_batch(
@@ -335,6 +385,5 @@ class BatchedEngine:
             ))
 
         return rerun_suspect_ladder(
-            suspects, ids_out, dists_out, self.query_batch, deeper,
-            self.scan_impl, run,
+            suspects, ids_out, dists_out, self.query_batch, deeper, rung1, run,
         )

@@ -1,11 +1,17 @@
 """Hand-written CUDA kernels: build, ctypes binding and wrappers.
 
-K1, the packed bin scan (``csrc/packed_scan_v3.cu``), replaces the Pallas
-kernel ``hvq_tpu/ops/pallas_scan.py::fused_packed_scan_v3``. Its sources
-are compiled with ``nvcc`` for ``sm_90a`` into a shared library with a
-plain C interface, at first CUDA use, into ``hvq_tpu_torch/_build/`` keyed
-by a hash of the sources. Importing this module builds nothing and needs
-no ``nvcc``.
+Each replaces a Pallas kernel of ``hvq_tpu/ops/pallas_scan.py``:
+
+* K1 ``packed_scan_v3`` (``csrc/packed_scan_v3.cu``) — ``fused_packed_scan_v3``;
+* K3 ``packed_scan``, K2 ``packed_scan_v2`` and K4 ``bin_scan``
+  (``csrc/lane_scan.cu``) — ``fused_packed_scan``, ``fused_packed_scan_v2``
+  and ``fused_bin_scan``.
+
+The sources are compiled with ``nvcc`` for ``sm_90a``, one process per
+source in parallel, and linked into one shared library with a plain C
+interface, at first CUDA use, into ``hvq_tpu_torch/_build/`` keyed by a
+hash of the sources and flags. Importing this module builds nothing and
+needs no ``nvcc``.
 
 Each wrapper runs its kernel's plain PyTorch version (in ``ops/scan.py``)
 for tensors on the CPU and launches the kernel for CUDA tensors, or
@@ -15,6 +21,7 @@ raises: there is no fallback. ``launches`` counts kernel launches only.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -25,22 +32,34 @@ from pathlib import Path
 
 import torch
 
-from hvq_tpu_torch.ops.scan import packed_scan_plain, scan_window
+from hvq_tpu_torch.ops.scan import (
+    bin_scan_plain,
+    check_bin_top,
+    packed_scan_plain,
+    scan_window,
+)
 from hvq_tpu_torch.ops.topk import BIN
 
 _PKG = Path(__file__).resolve().parent.parent
-_SOURCES = (_PKG / "csrc" / "packed_scan_v3.cu",)
+_SOURCES = (
+    _PKG / "csrc" / "packed_scan_v3.cu",
+    _PKG / "csrc" / "lane_scan.cu",
+)
 BUILD_DIR = _PKG / "_build"
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    *_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 # Where nvcc is looked for after PATH and $CUDA_HOME / $CUDA_PATH.
 CUDA_ROOTS = ("/usr/local/cuda",)
 
 # Kernel launches by wrapper name, since import or the last reset().
-launches = {"packed_scan_v3": 0}
+launches = {"packed_scan_v3": 0, "packed_scan": 0, "packed_scan_v2": 0,
+            "bin_scan": 0}
+
+# ``mode`` of the C entry point hvq_lane_scan for each lane-layout kernel.
+_LANE_MODES = {"packed_scan": 0, "packed_scan_v2": 1, "bin_scan": 2}
 
 _lock = threading.Lock()
 _lib = None
@@ -76,6 +95,35 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def _compile(nvcc: str, tmp: Path) -> tuple[float, str]:
+    """nvcc every source to an object, all at once, then link one library
+    at ``tmp``. Returns (seconds, compiler output)."""
+    t0 = time.perf_counter()
+    objs = [tmp.with_name(f"{tmp.stem}.{src.stem}.o") for src in _SOURCES]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+            for src, o in zip(_SOURCES, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [proc.communicate()[0] for proc in procs]
+    log = "".join(outs)
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}"
+            )
+    link = [nvcc, *_ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
+    proc = subprocess.run(link, capture_output=True, text=True)
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc link failed ({proc.returncode}): {' '.join(link)}\n"
+            f"{proc.stdout}{proc.stderr}"
+        )
+    return time.perf_counter() - t0, log
+
+
 def build() -> ctypes.CDLL:
     """Compile (if needed) and load the kernel library; idempotent.
 
@@ -92,15 +140,7 @@ def build() -> ctypes.CDLL:
             nvcc = nvcc_path()
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _SOURCES)]
-            t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            seconds = time.perf_counter() - t0
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}"
-                )
+            seconds, log = _compile(nvcc, tmp)
             os.replace(tmp, so)
             compiled = True
         lib = ctypes.CDLL(str(so))
@@ -111,6 +151,14 @@ def build() -> ctypes.CDLL:
             + [ctypes.c_void_p] * 11                  # C T dn oid q qn ac v at l r
             + [ctypes.c_int] * 6                      # sn B db_tile R t0 ntw
             + [ctypes.c_void_p] * 3                   # out_d out_p stream
+        )
+        fn = lib.hvq_lane_scan
+        fn.restype = ctypes.c_int
+        fn.argtypes = (
+            [ctypes.c_int]                            # mode
+            + [ctypes.c_void_p] * 12                  # V C T dn oid q qn ac v at l r
+            + [ctypes.c_int] * 5                      # sn B n_pad db_tile R
+            + [ctypes.c_void_p] * 3                   # out_d out_i stream
         )
         build_info.update(path=str(so), compiled=compiled, seconds=seconds,
                           log=log)
@@ -131,6 +179,54 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+def _check_scan_args(Vs, planes, C, T, dn, oid, qV, active_c, v, active_t,
+                     l, r, bin_top):
+    """Device, dtype, shape and contiguity checks shared by the wrappers;
+    returns (device, n_pad, B)."""
+    device = Vs.device
+    n_pad = Vs.shape[0] if Vs.dim() == 2 else -1
+    B = qV.shape[0] if qV.dim() == 2 else -1
+    f32, i32, b = (torch.float32,), (torch.int32,), (torch.bool,)
+    _check("Vs", Vs, planes, (n_pad, BIN), device)
+    for name, t in (("C", C), ("T", T), ("dn", dn)):
+        _check(name, t, f32, (n_pad,), device)
+    _check("oid", oid, i32, (n_pad,), device)
+    _check("qV", qV, f32, (B, BIN), device)
+    for name, t in (("active_c", active_c), ("active_t", active_t)):
+        _check(name, t, b, (B,), device)
+    for name, t in (("v", v), ("l", l), ("r", r)):
+        _check(name, t, f32, (B,), device)
+    check_bin_top(bin_top)
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the scan kernels run on cpu or cuda, not {device}")
+    if device.type == "cuda":
+        if Vs.data_ptr() % 16:
+            raise ValueError("Vs must be 16-byte aligned")
+        if n_pad >= 2 ** 31:
+            raise ValueError("scan too large for int32 row positions")
+    return device, n_pad, B
+
+
+def _launch(name, device, B, W, qV, active_c, active_t, call):
+    """Run kernel ``name`` on the device's current stream: derives its
+    query inputs, allocates its (B, W) fp32 and int32 outputs, passes
+    ``call(qn, ac, at, out_d, out_i, stream)`` their pointers, raises on a
+    launch error and counts the launch."""
+    qn = (qV * qV).sum(dim=1)
+    ac = active_c.to(torch.int32)
+    at = active_t.to(torch.int32)
+    out_d = torch.empty((B, W), dtype=torch.float32, device=device)
+    out_i = torch.empty((B, W), dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = call(qn.data_ptr(), ac.data_ptr(), at.data_ptr(),
+                   out_d.data_ptr(), out_i.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    launches[name] += 1
+    return out_d, out_i
+
+
 def packed_scan_v3(
     Vs, C, T, dn, oid, qV, active_c, v, active_t, l, r, sn,
     db_tile: int = 16384,
@@ -147,52 +243,110 @@ def packed_scan_v3(
     bf16. CPU tensors run :func:`packed_scan_plain`; CUDA tensors launch
     the kernel.
     """
-    device = Vs.device
-    n_pad = Vs.shape[0] if Vs.dim() == 2 else -1
-    B = qV.shape[0] if qV.dim() == 2 else -1
-    f32, i32, b = (torch.float32,), (torch.int32,), (torch.bool,)
-    _check("Vs", Vs, (torch.float32, torch.bfloat16), (n_pad, BIN), device)
-    for name, t in (("C", C), ("T", T), ("dn", dn)):
-        _check(name, t, f32, (n_pad,), device)
-    _check("oid", oid, i32, (n_pad,), device)
-    _check("qV", qV, f32, (B, BIN), device)
-    for name, t in (("active_c", active_c), ("active_t", active_t)):
-        _check(name, t, b, (B,), device)
-    for name, t in (("v", v), ("l", l), ("r", r)):
-        _check(name, t, f32, (B,), device)
+    device, n_pad, B = _check_scan_args(
+        Vs, (torch.float32, torch.bfloat16), C, T, dn, oid, qV, active_c, v,
+        active_t, l, r, bin_top)
     t0, nt = scan_window(n_pad, db_tile, row0, ntw)
-    if not 1 <= bin_top <= BIN:
-        raise ValueError(f"bin_top {bin_top} outside [1, {BIN}]")
     sn = int(sn)
     if device.type == "cpu":
         return packed_scan_plain(
             Vs, C, T, dn, oid, qV, active_c, v, active_t, l, r, sn,
             db_tile=db_tile, bin_top=bin_top, row0=row0, ntw=ntw,
         )
-    if device.type != "cuda":
-        raise ValueError(f"packed_scan_v3 runs on cpu or cuda, not {device}")
-    if Vs.data_ptr() % 16:
-        raise ValueError("Vs must be 16-byte aligned")
-    if n_pad >= 2 ** 31:
-        raise ValueError("scan too large for int32 row positions")
     fn = build().hvq_packed_scan_v3
-    W = nt * bin_top * (db_tile // BIN)
-    qn = (qV * qV).sum(dim=1)
-    ac = active_c.to(torch.int32)
-    at = active_t.to(torch.int32)
-    out_d = torch.empty((B, W), dtype=torch.float32, device=device)
-    out_p = torch.empty((B, W), dtype=torch.int32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(
+    return _launch(
+        "packed_scan_v3", device, B, nt * bin_top * (db_tile // BIN), qV,
+        active_c, active_t,
+        lambda qn, ac, at, out_d, out_p, stream: fn(
             Vs.data_ptr(), int(Vs.dtype == torch.bfloat16),
             C.data_ptr(), T.data_ptr(), dn.data_ptr(), oid.data_ptr(),
-            qV.data_ptr(), qn.data_ptr(), ac.data_ptr(), v.data_ptr(),
-            at.data_ptr(), l.data_ptr(), r.data_ptr(),
-            sn, B, db_tile, bin_top, t0, nt,
-            out_d.data_ptr(), out_p.data_ptr(), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"packed_scan_v3 launch failed: cudaError {err}")
-    launches["packed_scan_v3"] += 1
-    return out_d, out_p
+            qV.data_ptr(), qn, ac, v.data_ptr(), at, l.data_ptr(),
+            r.data_ptr(), sn, B, db_tile, bin_top, t0, nt, out_d, out_p,
+            stream,
+        ),
+    )
+
+
+def _lane_scan(name, Vp, C, T, dn, oid, qV, active_c, v, active_t, l, r, sn,
+               db_tile, bin_top):
+    """Checks, then ``plain[name]`` on CPU tensors or the kernel ``name`` of
+    ``csrc/lane_scan.cu`` on CUDA tensors. ``Vp`` is the fp32 plane."""
+    device, n_pad, B = _check_scan_args(
+        Vp, (torch.float32,), C, T, dn, oid, qV, active_c, v, active_t, l, r,
+        bin_top)
+    _, nt = scan_window(n_pad, db_tile, None, None)
+    sn = int(sn)
+    if device.type == "cpu":
+        return plain[name](Vp, C, T, dn, oid, qV, active_c, v, active_t, l, r,
+                           sn, db_tile=db_tile, bin_top=bin_top)
+    fn = build().hvq_lane_scan
+    return _launch(
+        name, device, B, nt * bin_top * (db_tile // BIN), qV, active_c,
+        active_t,
+        lambda qn, ac, at, out_d, out_i, stream: fn(
+            _LANE_MODES[name], Vp.data_ptr(), C.data_ptr(), T.data_ptr(),
+            dn.data_ptr(), oid.data_ptr(), qV.data_ptr(), qn, ac,
+            v.data_ptr(), at, l.data_ptr(), r.data_ptr(), sn, B, n_pad,
+            db_tile, bin_top, out_d, out_i, stream,
+        ),
+    )
+
+
+def packed_scan(
+    Vp, C, T, dn, oid, qV, active_c, v, active_t, l, r, sn,
+    db_tile: int = 8192,
+    bin_top: int = 2,
+):
+    """K3: the lane-layout packed scan at fp32, output contract of
+    ``fused_packed_scan``.
+
+    Bin b of a tile is its 128 contiguous rows b·128 + lane. Returns (dist
+    (B, W) fp32 [low 7 bits zeroed, +inf = empty], pos (B, W) int32 =
+    tile·Dt + b·128 + lane), W = nt · bin_top · db_tile/128. ``Vp`` is the
+    fp32 plane. CPU tensors run ``packed_scan_plain(layout="lane",
+    precision="highest")``; CUDA tensors launch the kernel.
+    """
+    return _lane_scan("packed_scan", Vp, C, T, dn, oid, qV, active_c, v,
+                      active_t, l, r, sn, db_tile, bin_top)
+
+
+def packed_scan_v2(
+    Vp, C, T, dn, oid, qV, active_c, v, active_t, l, r, sn,
+    db_tile: int = 8192,
+    bin_top: int = 2,
+):
+    """K2: the lane-layout packed scan with the 3-pass bf16 split
+    ``(q_hi·d_hi + q_hi·d_lo) + q_lo·d_hi``, output contract of
+    ``fused_packed_scan_v2`` (as :func:`packed_scan`). CPU tensors run
+    ``packed_scan_plain(layout="lane", precision="high")``; CUDA tensors
+    launch the kernel.
+    """
+    return _lane_scan("packed_scan_v2", Vp, C, T, dn, oid, qV, active_c, v,
+                      active_t, l, r, sn, db_tile, bin_top)
+
+
+def bin_scan(
+    Vp, C, T, dn, oid, qV, active_c, v, active_t, l, r, sn,
+    db_tile: int = 2048,
+    bin_top: int = 2,
+):
+    """K4: the unpacked lane-layout bin scan, output contract of
+    ``fused_bin_scan``: (scores (B, W) fp32 = ‖d‖² − 2·q·d, +inf where
+    masked or empty, ids (B, W) int32 = ``oid`` of the row, or of the
+    bin's lane 0 for padding). CPU tensors run :func:`bin_scan_plain`;
+    CUDA tensors launch the kernel.
+    """
+    return _lane_scan("bin_scan", Vp, C, T, dn, oid, qV, active_c, v,
+                      active_t, l, r, sn, db_tile, bin_top)
+
+
+# Each wrapper's plain PyTorch version: what it runs on CPU tensors, and
+# what a kernel is held against on the card.
+plain = {
+    "packed_scan_v3": packed_scan_plain,
+    "packed_scan": functools.partial(packed_scan_plain, layout="lane",
+                                     precision="highest"),
+    "packed_scan_v2": functools.partial(packed_scan_plain, layout="lane",
+                                        precision="high"),
+    "bin_scan": bin_scan_plain,
+}

@@ -46,39 +46,54 @@ def binned_stream_topk(
     out_i: torch.Tensor,  # (B, W) candidate positions
     kp: int,
     rounds: int = 8,
+    nt: int | None = None,
+    layout: str = "axis1",
 ):
     """Level-2 packed bin reduce before the final candidate top-k.
 
-    The axis1 layout of ``hvq_tpu.ops.topk.binned_stream_topk``: bins are
-    the strided column groups {b, b+bins2, …}, each reduced to its best
-    ``rounds`` packed keys, then one top-k over the reduced stream.
+    ``hvq_tpu.ops.topk.binned_stream_topk``: the stream is cut into 128-
+    column bins, each reduced to its best ``rounds`` packed keys, then one
+    top-k over the reduced stream. ``layout="axis1"`` (the default): bins
+    are the strided column groups {b, b+bins2, …}. ``layout="lane"``:
+    contiguous 128-column bins; ``nt`` (the tile count) first transposes
+    the stream to (bin-slot, tile) order so a bin samples across tiles.
     Returns (scores (B, kp), ids (B, kp), worst2 (B,)), where worst2 is
     the min over bins of the ``rounds``-th kept value (+inf where no bin
     saturated) and feeds the exactness certificate.
     """
     B, W = out_s.shape
+    if layout != "axis1" and nt is not None and nt > 1 and W % nt == 0:
+        rb = W // nt
+        out_s = out_s.view(B, nt, rb).transpose(1, 2).reshape(B, W)
+        out_i = out_i.view(B, nt, rb).transpose(1, 2).reshape(B, W)
     Wp = -(-W // BIN) * BIN
     if Wp != W:
         out_s = torch.nn.functional.pad(out_s, (0, Wp - W), value=float("inf"))
     bins2 = Wp // BIN
     # the reduced stream must still be able to hold kp candidates
     rounds = min(max(rounds, -(-kp // bins2)), BIN)
+    red = 1 if layout == "axis1" else 2
     lane = torch.arange(BIN, dtype=torch.int32, device=out_s.device)
-    lane = lane.view(1, BIN, 1)
+    lane = lane.view((1, BIN, 1) if red == 1 else (1, 1, BIN))
+    shape = (B, BIN, bins2) if red == 1 else (B, bins2, BIN)
     packed = (
-        out_s.contiguous().view(torch.int32).view(B, BIN, bins2) & KEY_MASK
+        out_s.contiguous().view(torch.int32).view(shape) & KEY_MASK
     ) | lane
     outs = []
     for rnd in range(rounds):
-        m = packed.amin(dim=1)                       # (B, bins2)
+        m = packed.amin(dim=red)                     # (B, bins2)
         outs.append(m)
         if rnd + 1 < rounds:
-            packed.masked_fill_(lane == (m & 0x7F)[:, None, :], INF_KEY)
+            packed.masked_fill_(lane == (m & 0x7F).unsqueeze(red), INF_KEY)
     del packed
     keys = torch.stack(outs, dim=1)                  # (B, rounds, bins2)
     worst2 = (keys[:, -1, :] & KEY_MASK).view(torch.float32).amin(dim=1)
     colb = torch.arange(bins2, dtype=torch.int32, device=out_s.device)
-    col = ((keys & 0x7F) * bins2 + colb).reshape(B, rounds * bins2)
+    if red == 1:
+        col = (keys & 0x7F) * bins2 + colb           # strided groups
+    else:
+        col = colb * BIN + (keys & 0x7F)             # contiguous bins
+    col = col.reshape(B, rounds * bins2)
     d2 = (keys & KEY_MASK).view(torch.float32).reshape(B, rounds * bins2)
     kp = min(kp, rounds * bins2)
     top, idx = smallest_k(d2, kp)

@@ -1,4 +1,5 @@
-"""Card-only tests of the port: the CUDA kernel K1 against its plain version.
+"""Card-only tests of the port: the CUDA kernels K1–K4 against their plain
+versions, and the batched engine on the card.
 
 A CUDA kernel has no CPU mode, so every test here is marked ``cuda`` and
 skips where no NVIDIA GPU is present. On a GPU machine with nvcc:
@@ -16,7 +17,7 @@ import torch
 from hvq_tpu_torch.ops import kernels
 from hvq_tpu_torch.ops.masks import query_predicate_fields
 from hvq_tpu_torch.ops.scan import packed_scan_plain
-from hvq_tpu_torch.utils.check import scan_agreement
+from hvq_tpu_torch.utils.check import bin_scan_agreement, scan_agreement
 
 REL_MM = 1.6e-5   # the fp32-plane certificate slack (models.batched)
 
@@ -126,3 +127,90 @@ def test_engine_on_cuda_matches_oracle(cuda):
             recompute_result_distances(ds, qs, oids.astype(np.int64)),
         )
         assert res.ok, res
+
+
+def _lane_agree(name, args, sn, db_tile, R):
+    got = getattr(kernels, name)(*args, sn, db_tile=db_tile, bin_top=R)
+    want = kernels.plain[name](*args, sn, db_tile=db_tile, bin_top=R)
+    torch.cuda.synchronize()
+    check = bin_scan_agreement if name == "bin_scan" else scan_agreement
+    qV, dn = args[5], args[3]
+    return check(*got, *want, R, db_tile // 128, (qV * qV).sum(1),
+                 float(dn.max()), REL_MM), got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["packed_scan", "packed_scan_v2"])
+@pytest.mark.parametrize("db_tile,R", [(1024, 1), (1024, 4), (8192, 4),
+                                       (1024, 128)])
+def test_lane_kernel_matches_plain(cuda, name, db_tile, R):
+    a, _ = _lane_agree(name, _inputs(cuda), 30000, db_tile, R)
+    assert a["ok"], a
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("db_tile,R", [(128, 2), (2048, 2), (2048, 3),
+                                       (8192, 8)])
+def test_bin_scan_kernel_matches_plain(cuda, db_tile, R):
+    a, _ = _lane_agree("bin_scan", _inputs(cuda), 30000, db_tile, R)
+    assert a["ok"], a
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["packed_scan", "packed_scan_v2", "bin_scan"])
+def test_lane_kernel_masks_on_oid(cuda, name):
+    """With a permuted oid the sample test keeps rows at any position."""
+    args = list(_inputs(cuda))
+    args[4] = torch.randperm(args[4].numel(), generator=torch.Generator().manual_seed(0)
+                             ).to(cuda, torch.int32)
+    a, (d, i) = _lane_agree(name, args, 10000, 2048, 3)
+    assert a["ok"], a
+    kept = i[torch.isfinite(d)].long()
+    oid = kept if name == "bin_scan" else args[4][kept]
+    assert bool((oid < 10000).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["packed_scan", "packed_scan_v2", "bin_scan"])
+def test_lane_kernel_counts_only_its_launches(cuda, name):
+    args = _inputs(cuda)
+    kernels.reset_launches()
+    getattr(kernels, name)(*args, 100, db_tile=1024, bin_top=2)
+    kernels.plain[name](*args, 100, db_tile=1024, bin_top=2)
+    assert kernels.launches == {**dict.fromkeys(kernels.launches, 0), name: 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["packed_scan", "packed_scan_v2", "bin_scan"])
+def test_lane_wrapper_raises_instead_of_falling_back(cuda, name):
+    args = list(_inputs(cuda))
+    fn = getattr(kernels, name)
+    with pytest.raises(TypeError):              # fp32 plane only
+        fn(args[0].to(torch.bfloat16), *args[1:], 100, db_tile=1024, bin_top=2)
+    with pytest.raises(ValueError):
+        fn(*args[:5], args[5].cpu(), *args[6:], 100, db_tile=1024, bin_top=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl,name", [("v1", "packed_scan"),
+                                       ("v2", "packed_scan_v2")])
+def test_lane_engine_on_cuda_matches_oracle(cuda, impl, name):
+    from hvq_tpu.models.oracle import search_oracle
+    from hvq_tpu.utils.compare import compare_distances, recall_at_k
+    from hvq_tpu.utils.formats import recompute_result_distances
+    from hvq_tpu.utils.generators import generate_dataset, generate_queries
+    from hvq_tpu_torch import get_engine
+
+    ds = generate_dataset(40000, seed=8, categories=30)
+    qs = generate_queries(48, seed=9, categories=30)
+    kernels.reset_launches()
+    eng = get_engine("batched")(ds, device=cuda, query_batch=32, scan_impl=impl)
+    ids, dists = eng.search(qs)
+    assert kernels.launches[name] == 2
+    oids, odists = search_oracle(ds, qs)
+    assert recall_at_k(ids, oids, dists, odists) == 1.0
+    res = compare_distances(
+        recompute_result_distances(ds, qs, ids.astype(np.int64)),
+        recompute_result_distances(ds, qs, oids.astype(np.int64)),
+    )
+    assert res.ok, res

@@ -43,7 +43,8 @@ def test_kernel_module_imports_without_nvcc_and_build_says_why(tmp_path):
     proc = _run(
         "from hvq_tpu_torch.ops import kernels\n"
         "kernels.CUDA_ROOTS = ()\n"
-        "assert kernels.launches == {'packed_scan_v3': 0}\n"
+        "assert kernels.launches == {'packed_scan_v3': 0, 'packed_scan': 0,\n"
+        "                            'packed_scan_v2': 0, 'bin_scan': 0}\n"
         "try:\n"
         "    kernels.build()\n"
         "except RuntimeError as e:\n"
