@@ -22,7 +22,14 @@ Phases, in order; any failure exits non-zero with a traceback:
    plain version at the main-path shape;
 5. K4 at B=1024 over the same rows (Dt=2048, R=2, its own defaults): K4
    has no engine, so this call is its path; timed beside its plain version;
-6. main path at D=10⁷ rows, bf16 scan plane, through K1: the same checks.
+6. main path at D=10⁷ rows, bf16 scan plane, through K1: the same checks;
+7. the partitioned engine over phase 6's rows (bf16 plane) and 4·10⁴
+   mixed queries (phase 6's 10⁴, then 3·10⁴ more): K1 held to its plain
+   version on one windowed batch of the time view; a warm-up search that
+   pays the time view's build; the timed search with its launch counts
+   (K1 = full + windowed batches + rung-1 runs, nothing else) and route
+   counts; a fenced phase run; recall and ``.dist`` on the 64 oracle
+   queries, and every query within 0.002 of the batched K1 engine.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after. The last three lines are the card (``nvidia-smi`` name, power
@@ -407,14 +414,112 @@ def paths_d1e6(seed: int = 100) -> dict:
     return out
 
 
-def path_d1e7(seed: int = 200) -> dict:
-    """Phase 6: K1 on the bf16 plane at D=10⁷."""
+def path_d1e7(seed: int = 200):
+    """Phase 6: K1 on the bf16 plane at D=10⁷. Returns its result and what
+    phase 7 reuses: the dataset, queries, engine and oracle answer."""
     tag = "D=1e+07 bf16"
     ds, qs = dataset(10_000_000, seed, tag)
     eng = get_engine("batched")(ds, device=DEV, scan_store="bf16")
     assert eng.scan_impl == "v3"
     ref = references(tag, ds, qs, eng.db)
-    return run_engine(tag, eng, ds, qs, ref, seed)
+    return run_engine(tag, eng, ds, qs, ref, seed), (ds, qs, eng, ref)
+
+
+def concat_queries(a: QuerySet, b: QuerySet) -> QuerySet:
+    return QuerySet(**{f: np.concatenate([getattr(a, f), getattr(b, f)])
+                       for f in ("qtype", "v", "l", "r", "V")})
+
+
+def window_vs_plain(tag, eng, qs) -> dict:
+    """K1 on one windowed batch of the timed search (the batch's own
+    query_batch wide type-2 queries, its row0/ntw over the time view, the
+    view's permuted oid) against its plain version, then both timed."""
+    row0, ntw, sel = eng.last_windows[0]
+    tv, B = eng.index.time_view, eng.query_batch
+    qV, fields = first_batch(QuerySet(qtype=qs.qtype[sel], v=qs.v[sel], l=qs.l[sel],
+                                      r=qs.r[sel], V=qs.V[sel]), B)
+    args = (tv.scan_V, tv.C, tv.T, tv.d_norms, tv.oid, qV, *fields, tv.n)
+    kw = dict(db_tile=tv.db_tile, bin_top=eng.bin_top, row0=row0, ntw=ntw)
+    got = kernels.packed_scan_v3(*args, **kw)
+    want = kernels.plain["packed_scan_v3"](*args, **kw)
+    agree = scan_agreement(*got, *want, eng.bin_top, tv.db_tile // 128,
+                           (qV * qV).sum(1), eng._dn_max, eng._rel_mm)
+    pos = got[1]
+    assert int(pos.min()) >= row0 and int(pos.max()) < row0 + ntw * tv.db_tile
+    del got, want, pos
+    log(f"[{tag}] K1 window vs plain (row0={row0} ntw={ntw} of {tv.num_tiles} "
+        f"tiles, B={B}): {agree}")
+    assert agree["ok"], agree
+    ms = time_ms(lambda: kernels.packed_scan_v3(*args, **kw), 3)
+    plain_ms = time_ms(lambda: kernels.plain["packed_scan_v3"](*args, **kw), 3)
+    log(f"[{tag}] K1 window {ms:.3f} ms/call, plain {plain_ms:.3f} ms/call")
+    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=agree["max_abs_err"])
+
+
+def path_partitioned(reused, seed: int = 200) -> dict:
+    """Phase 7: the partitioned engine over phase 6's rows and queries."""
+    ds, qs6, partner, ref = reused
+    tag = "D=1e+07 bf16 partitioned"
+    qs = concat_queries(qs6, generate_queries(3 * M_QUERIES, seed=seed + 3,
+                                              categories=CATEGORIES))
+    t0 = time.perf_counter()
+    eng = get_engine("partitioned")(ds, device=DEV, scan_store="bf16")
+    log(f"[{tag}] engine built in {time.perf_counter() - t0:.1f} s "
+        f"(index {eng.index.build_seconds}); n_pad={eng.index.cat_view.n_pad} "
+        f"db_tile={eng.index.cat_view.db_tile} R={eng.bin_top} k'={eng.kprime} "
+        f"B={eng.query_batch} caps={eng.route_buckets} scan_impl={eng.scan_impl} "
+        f"time_view_max_bytes={eng.time_view_max_bytes}")
+    assert eng.scan_impl == "v3" and eng.certified and eng.kprime == 240
+    # warm-up over the whole set: it builds the time view
+    t0 = time.perf_counter()
+    eng.search(qs)
+    torch.cuda.synchronize()
+    log(f"[{tag}] warm-up search {time.perf_counter() - t0:.1f} s; "
+        f"route {eng.last_route}; time view built in "
+        f"{eng.index.build_seconds.get('time_view', float('nan')):.1f} s")
+    assert eng.index._time_view is not None
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    ids, dists = eng.search(qs)
+    wall = time.perf_counter() - t0
+    launches, route = dict(kernels.launches), dict(eng.last_route)
+    log(f"[{tag}] search {qs.m} queries: {wall:.3f} s = {qs.m / wall:.1f} QPS; "
+        f"launches {launches}; route {json.dumps(route)}")
+    windowed = sum(route["windowed_batches"].values())
+    want_launches = dict.fromkeys(kernels.launches, 0)
+    want_launches["packed_scan_v3"] = (route["full_batches"] + windowed
+                                       + route["ladder"].get("rung1_runs", 0))
+    assert launches == want_launches, (launches, want_launches)
+    assert windowed >= 1 and sum(route["routed_groups"].values()) >= 1, route
+    assert ids.shape == (qs.m, 100) and np.isfinite(dists).all() and (ids < ds.n).all()
+    win = window_vs_plain(tag, eng, qs)
+
+    phases = PhaseTimer(device=DEV)
+    eng.search(qs, phases=phases)
+    log(f"[{tag}] phases (fenced run): {json.dumps(phases.as_dict())}")
+
+    sub = ref["sub"]
+    rec = recall_at_k(ids[:64], ref["oids"], dists[:64], ref["odists"])
+    res = compare_distances(
+        recompute_result_distances(ds, sub, ids[:64].astype(np.int64)),
+        ref["oracle_d"])
+    log(f"[{tag}] oracle (64 queries): recall@100={rec} dist={res.status} "
+        f"max|Δ|={res.max_abs_diff}")
+    assert rec == 1.0 and res.ok, (rec, res)
+    del eng
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    p_ids, _ = partner.search(qs)
+    full = compare_distances(
+        recompute_result_distances(ds, qs, ids.astype(np.int64)),
+        recompute_result_distances(ds, qs, p_ids.astype(np.int64)))
+    log(f"[{tag}] vs the batched K1 engine, all {qs.m} queries "
+        f"({time.perf_counter() - t0:.1f} s): {full.status} "
+        f"max|Δ|={full.max_abs_diff} beyond={full.num_exceeding}")
+    assert full.ok, full
+    return dict(qps=qs.m / wall, launches=launches, route=route,
+                ms_window=win["ms"], plain_ms_window=win["plain_ms"],
+                max_abs_err=win["max_abs_err"])
 
 
 def main() -> int:
@@ -425,7 +530,9 @@ def main() -> int:
     log(f"kernel vs plain: all cases ok, max_abs_err {worst}")
     r6 = paths_d1e6()
     torch.cuda.empty_cache()
-    r7 = path_d1e7()
+    r7, reused = path_d1e7()
+    r8 = path_partitioned(reused)
+    del reused
     library = os.path.basename(kernels.build_info["path"])
     entries = []
     for name, impl in (("packed_scan_v3", "v3"), ("packed_scan", "v1"),
@@ -438,14 +545,18 @@ def main() -> int:
                      ms=r["ms"], plain_ms=r["plain_ms"])
         else:
             r = r6[impl]
-            paths = [r6["v3"], r6["v1"], r6["v2"], r7]
+            paths = [r6["v3"], r6["v1"], r6["v2"], r7, r8]
             e.update(launches=sum(p["launches"][name] for p in paths),
                      max_abs_err=max(worst[name], r["max_abs_err"]),
                      ms=r["ms"], plain_ms=r["plain_ms"], qps=r["qps"])
         if name == "packed_scan_v3":
-            e.update(max_abs_err=max(e["max_abs_err"], r7["max_abs_err"]),
+            e.update(max_abs_err=max(e["max_abs_err"], r7["max_abs_err"],
+                                     r8["max_abs_err"]),
                      ms_d1e7_bf16=r7["ms"], plain_ms_d1e7_bf16=r7["plain_ms"],
-                     qps_d1e7=r7["qps"])
+                     qps_d1e7=r7["qps"],
+                     ms_window_d1e7_bf16=r8["ms_window"],
+                     plain_ms_window_d1e7_bf16=r8["plain_ms_window"],
+                     qps_partitioned_d1e7=r8["qps"])
         entries.append(e)
     log(card)
     log(json.dumps({"kernels": entries}))

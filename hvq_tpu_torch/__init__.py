@@ -10,7 +10,9 @@ imported from there, and nothing here imports jax.
 Package layout::
 
     hvq_tpu_torch/
-      models/  engines (batched exact), device database, shared finalize
+      models/  engines (batched and partitioned exact), device database,
+               shared finalize
+      index/   sorted views of the partitioned engine (host range routing)
       ops/     distances, masks, top-k, the packed scan and its kernels
       csrc/    hand-written CUDA kernels (built with nvcc at first use)
       utils/   phase timers

@@ -2,9 +2,10 @@
 analogue).
 
     python -m hvq_tpu_torch.cli run --data D.bin --queries Q.bin \\
-        --engine batched --output output.bin --device cuda
+        --engine partitioned --output output.bin --device cuda
 
-reads the contest binary files, runs an engine on the named device, and
+reads the contest binary files, runs an engine (batched, partitioned or
+oracle) on the named device, and
 writes ``output.bin`` (headerless uint32 ids) and ``output.bin.dist``
 (distances recomputed from the ids) through ``hvq_tpu.utils.formats``.
 Generating data and comparing ``.dist`` files stay with
@@ -34,7 +35,7 @@ def _cmd_run(args) -> int:
     print(f"# queries:      {qs.m}", file=sys.stderr)
 
     kwargs = dict(device=args.device)
-    if args.engine == "batched":
+    if args.engine in ("batched", "partitioned"):
         for key in ("db_tile", "query_batch", "scan_store"):
             if getattr(args, key) is not None:
                 kwargs[key] = getattr(args, key)
@@ -67,7 +68,7 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--data", required=True)
     r.add_argument("--queries", required=True)
     r.add_argument("--output", default="output.bin")
-    r.add_argument("--engine", default="batched", choices=("batched", "oracle"))
+    r.add_argument("--engine", default="batched", choices=("batched", "partitioned", "oracle"))
     r.add_argument("--device", default="cuda",
                    help="torch device: cuda (the kernels) or cpu")
     r.add_argument("--k", type=int, default=100)

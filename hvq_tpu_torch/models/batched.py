@@ -41,6 +41,8 @@ the ladder's first rung, as in the JAX engine.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -98,6 +100,114 @@ def pack_query_block(qV: np.ndarray, qtype, v, l, r) -> np.ndarray:
     out[:, _c.VEC_DIM + 2] = l
     out[:, _c.VEC_DIM + 3] = r
     return out
+
+
+def unpack_query_block(Qblk: torch.Tensor) -> common.QueryBatch:
+    """(B, QPACK_W) packed query block on the device → decoded batch."""
+    qV = torch.nn.functional.pad(
+        Qblk[:, : _c.VEC_DIM], (0, _c.PADDED_DIM - _c.VEC_DIM)
+    )
+    return common.QueryBatch(qV, *query_predicate_fields(
+        *(Qblk[:, _c.VEC_DIM + j].contiguous() for j in range(4))
+    ))
+
+
+def select_candidates(out_s, out_i, kprime: int, nt: int, layout: str,
+                      level2: bool, l2_min_w: int):
+    """Stage 2: the top-k′ of a packed scan's candidate stream.
+
+    Level-2 gates, as the JAX engines (``batched.py:606-616``,
+    ``partitioned.py:449-454``): the stream is at least ``l2_min_w`` wide,
+    and in the axis1 layout W ≥ 16384 keeps ≥ 128 level-2 bins, so the
+    Poisson load per bin stays ≤ 1; the lane layout's transpose needs
+    ``nt`` ≥ 128 tiles (``nt``: the tiles scanned, a window's own count)
+    to spread a tile's near-ties over bins. Reruns pass level2=False: one
+    batch's plain top-k certifies harder. Returns (scores (B, kp), ids
+    (B, kp), worst2 or None, k′-cut score or None).
+    """
+    W = out_s.shape[1]
+    kp = min(kprime, W)
+    worst2 = None
+    l2_ok = W >= 16384 if layout == "axis1" else nt >= 128
+    if level2 and W >= l2_min_w and l2_ok:
+        scores, ids, worst2 = binned_stream_topk(out_s, out_i, kp, nt=nt,
+                                                 layout=layout)
+    else:
+        scores, idx = smallest_k(out_s, kp)
+        ids = torch.gather(out_i, 1, idx)
+    kcut_score = scores[:, kp - 1] if kp < W else None
+    return scores, ids, worst2, kcut_score
+
+
+def certificate(f_d, qV, out_s, nt: int, bin_top: int, bins: int,
+                rel_mm: float, dn_max: float, worst2, kcut_score, k: int):
+    """Stage 4: the suspect flag. Nothing outside the kept candidates can
+    beat the k-th refined distance t unless a bin's, the level-2 reduce's
+    or the k′ cut's worst kept (quantized) distance is below t plus the
+    fp slack."""
+    t = f_d[:, k - 1]
+    qnorm = (qV * qV).sum(dim=1)
+    thr = t + (rel_mm * (qnorm + dn_max) + _CERT_REL_T * t + _CERT_ABS)
+    worst = last_round_dists(out_s, nt, bin_top, bins)
+    return common.cert_suspect(
+        worst.amin(dim=1) < thr,
+        worst2 < thr if worst2 is not None else None,
+        kcut_score < thr if kcut_score is not None else None,
+    )
+
+
+def certified_scan(eng, scan, store, qb: common.QueryBatch, ids, sn: int,
+                   n: int, k: int, bin_top: int, level2: bool = True,
+                   oid=None, row0: int | None = None, ntw: int | None = None,
+                   phases=None):
+    """Stages 1–4 for one query block over ``store`` (a DeviceDB or a
+    sorted view), or over its tile window [row0, row0 + ntw·Dt) → device
+    (ids int32 (B, k), suspect bool (B,), dists fp32 (B, k)).
+
+    ``scan(C, T, d_norms, ids, qV, *fields, sn, **kw)`` is the packed scan
+    on the engine's plane; ``ids`` (n_pad,) are the ids its sample limit
+    tests (row positions, or a view's ``oid``); ``oid`` maps the refined
+    view positions to original ids (``finalize(oid=)``). ``eng`` gives
+    ``kprime``, ``scan_layout``, ``l2_min_w``, ``tail_V``, ``certified``
+    and the certificate's ``_rel_mm`` and ``_dn_max``.
+    """
+    Dt = store.db_tile
+    kw = dict(db_tile=Dt, bin_top=bin_top)
+    if row0 is not None:
+        kw.update(row0=row0, ntw=ntw)
+    with maybe_phase(phases, "batch/scan"):
+        out_s, out_i = scan(store.C, store.T, store.d_norms, ids, qb.qV,
+                            *qb[1:], sn, **kw)
+    # a window decodes its own tile count, not the store's
+    nt = store.num_tiles if row0 is None else ntw
+    with maybe_phase(phases, "batch/select"):
+        scores, cand, worst2, kcut_score = select_candidates(
+            out_s, out_i, eng.kprime, nt, eng.scan_layout, level2,
+            eng.l2_min_w,
+        )
+    with maybe_phase(phases, "batch/finalize"):
+        f_ids, f_d = common.finalize(scores, cand, store.Vp, qb, n, k,
+                                     eng.tail_V, oid=oid)
+    if not eng.certified:
+        return f_ids, torch.zeros(qb.qV.shape[0], dtype=torch.bool,
+                                  device=qb.qV.device), f_d
+    with maybe_phase(phases, "batch/certificate"):
+        suspect = certificate(f_d, qb.qV, out_s, nt, bin_top, Dt // BIN,
+                              eng._rel_mm, eng._dn_max, worst2, kcut_score, k)
+    return f_ids, suspect, f_d
+
+
+def pack_result(ids, suspect, dists) -> torch.Tensor:
+    """(B, 2k+1) int32 device tensor [ids | dists bits | suspect]: one
+    device→host copy per dispatch."""
+    return torch.cat(
+        [ids, dists.view(torch.int32), suspect.to(torch.int32)[:, None]], dim=1
+    )
+
+
+def unpack_result(host: np.ndarray, k: int):
+    """Host (ids int32, suspect bool, dists fp32) of a :func:`pack_result`."""
+    return host[:, :k], host[:, 2 * k] != 0, host[:, k : 2 * k].view(np.float32)
 
 
 def _pow2_batch(m: int, cap: int) -> int:
@@ -170,6 +280,7 @@ class BatchedEngine:
         bin_top: int | None = None,
         scan_store: str = "fp32",
         scan_layout: str = "axis1",
+        l2_min_w: int = 16384,
     ):
         self.device = resolve_device(device)
         require_ieee_fp32(self.device)
@@ -221,6 +332,8 @@ class BatchedEngine:
         self._dn_max = (
             float(self.db.d_norms.max()) if self.certified else 0.0
         )
+        # narrowest candidate stream that takes the level-2 reduce
+        self.l2_min_w = int(l2_min_w)
         # what the rerun ladder did in the last search()
         self.last_ladder: dict = {}
 
@@ -240,89 +353,39 @@ class BatchedEngine:
         impl = impl or self.scan_impl
         bin_top = bin_top or self.bin_top
         db = self.db
-        B = Qblk.shape[0]
-        qV = torch.nn.functional.pad(
-            Qblk[:, : _c.VEC_DIM], (0, _c.PADDED_DIM - _c.VEC_DIM)
-        )
-        fields = query_predicate_fields(
-            *(Qblk[:, _c.VEC_DIM + j].contiguous() for j in range(4))
-        )
-        qb = common.QueryBatch(qV, *fields)
-        Dt = db.db_tile
+        qb = unpack_query_block(Qblk)
         if impl == "stream":
             with maybe_phase(phases, "batch/stream_scan"):
                 scores, ids = common.scan_database(
-                    db.Vp, db.C, db.T, db.d_norms, qb, sn,
-                    kprime=self.kprime, db_tile=Dt, precision=_STREAM_PRECISION,
+                    db.Vp, db.C, db.T, db.d_norms, qb, sn, kprime=self.kprime,
+                    db_tile=db.db_tile, precision=_STREAM_PRECISION,
                 )
             with maybe_phase(phases, "batch/finalize"):
                 f_ids, f_d = common.finalize(
                     scores, ids, db.Vp, qb, n, k, self.tail_V
                 )
-            return f_ids, torch.zeros(B, dtype=torch.bool, device=qV.device), f_d
+            return f_ids, torch.zeros(Qblk.shape[0], dtype=torch.bool,
+                                      device=Qblk.device), f_d
+        return certified_scan(self, self._scan(impl), db, qb, self._pos, sn,
+                              n, k, bin_top, level2, phases=phases)
 
-        with maybe_phase(phases, "batch/scan"):
-            args = (db.C, db.T, db.d_norms, self._pos, qV, *fields, sn)
-            kw = dict(db_tile=Dt, bin_top=bin_top)
-            if impl == "v3":
-                out_s, out_i = kernels.packed_scan_v3(db.scan_V, *args, **kw)
-            elif impl == "v1":
-                out_s, out_i = kernels.packed_scan(db.Vp, *args, **kw)
-            elif impl == "v2":
-                out_s, out_i = kernels.packed_scan_v2(db.Vp, *args, **kw)
-            else:
-                out_s, out_i = packed_scan_plain(db.scan_V, *args, **kw,
-                                                 layout=self.scan_layout)
-        W = out_s.shape[1]
-        kp = min(self.kprime, W)
-        worst2 = None
-        with maybe_phase(phases, "batch/select"):
-            # Level-2 gates (see the JAX engine). W ≥ 16384 keeps ≥ 128
-            # level-2 bins, so the Poisson load per bin stays ≤ 1; the lane
-            # layout's transpose also needs nt ≥ 128 tiles to spread a
-            # tile's near-ties over bins. Reruns pass level2=False: one
-            # batch's plain top-k certifies harder.
-            nt = db.num_tiles
-            if level2 and W >= 16384 and (self.scan_layout == "axis1" or nt >= 128):
-                scores, ids, worst2 = binned_stream_topk(
-                    out_s, out_i, kp, nt=nt, layout=self.scan_layout
-                )
-            else:
-                scores, idx = smallest_k(out_s, kp)
-                ids = torch.gather(out_i, 1, idx)
-            kcut_score = scores[:, kp - 1] if kp < W else None
-        with maybe_phase(phases, "batch/finalize"):
-            f_ids, f_d = common.finalize(
-                scores, ids, db.Vp, qb, n, k, self.tail_V
-            )
-        if not self.certified:
-            return f_ids, torch.zeros(B, dtype=torch.bool, device=qV.device), f_d
-        with maybe_phase(phases, "batch/certificate"):
-            # nothing outside the kept candidates can beat the k-th
-            # refined distance t unless a term below fires
-            t = f_d[:, k - 1]
-            qnorm = (qV * qV).sum(dim=1)
-            thr = t + (
-                self._rel_mm * (qnorm + self._dn_max) + _CERT_REL_T * t
-                + _CERT_ABS
-            )
-            worst = last_round_dists(out_s, nt, bin_top, Dt // BIN)
-            suspect = common.cert_suspect(
-                worst.amin(dim=1) < thr,
-                worst2 < thr if worst2 is not None else None,
-                kcut_score < thr if kcut_score is not None else None,
-            )
-        return f_ids, suspect, f_d
+    def _scan(self, impl: str):
+        """Stage 1 of ``impl``: its packed scan, bound to its plane."""
+        db = self.db
+        if impl == "v3":
+            return functools.partial(kernels.packed_scan_v3, db.scan_V)
+        if impl == "v1":
+            return functools.partial(kernels.packed_scan, db.Vp)
+        if impl == "v2":
+            return functools.partial(kernels.packed_scan_v2, db.Vp)
+        return functools.partial(packed_scan_plain, db.scan_V,
+                                 layout=self.scan_layout)
 
     @staticmethod
     def _fetch(ids, suspect, dists):
         """ONE device→host copy: host (ids int32, suspect bool, dists fp32)."""
-        k = ids.shape[1]
-        host = torch.cat(
-            [ids, dists.view(torch.int32), suspect.to(torch.int32)[:, None]],
-            dim=1,
-        ).cpu().numpy()
-        return host[:, :k], host[:, 2 * k] != 0, host[:, k : 2 * k].view(np.float32)
+        return unpack_result(pack_result(ids, suspect, dists).cpu().numpy(),
+                             ids.shape[1])
 
     def search(
         self,

@@ -45,12 +45,16 @@ def scan_database(
     kprime: int,
     db_tile: int,
     precision: str = "highest",
+    oid: torch.Tensor | None = None,
 ):
     """Streaming masked-distance top-k' over every tile (no bin reduce).
 
     The certified-exact path and the last rung of the rerun ladder.
     Returns (scores (B, k'), ids (B, k') int32) with +inf marking empty
-    slots; ids are row positions.
+    slots; ids are row positions. ``oid`` (n_pad,): the original id of
+    each row of a reordered view; the sample limit then tests
+    ``oid < sn`` (the reference's file order), and the returned ids stay
+    view positions for a local refinement gather (``finalize(oid=)``).
     """
     B = qb.qV.shape[0]
     device = Vp.device
@@ -61,7 +65,8 @@ def scan_database(
         rows = slice(base, base + db_tile)
         pos = lane + base
         s = tile_scores(qb.qV, Vp[rows], dn[rows], precision)
-        ok = block_mask(C[rows], T[rows], pos, sn, qb.active_c, qb.v,
+        gid = pos if oid is None else oid[rows]
+        ok = block_mask(C[rows], T[rows], gid, sn, qb.active_c, qb.v,
                         qb.active_t, qb.l, qb.r)
         s = s.masked_fill(~ok, float("inf"))
         scores, ids = merge_topk(scores, ids, s, pos.expand(B, -1), kprime)
@@ -76,16 +81,22 @@ def finalize(
     n: int,                     # true dataset size
     k: int,
     tail_V: torch.Tensor,       # (t, 128) tail rows: tail_V[j] = V[n-1-j]
+    oid: torch.Tensor | None = None,   # (n_pad,) original ids of view rows
 ):
     """Exact refinement + reference padding + final ascending sort.
 
     Returns (ids (B, k) int32, dists (B, k) fp32), dists being the direct
-    fp32 Σ(q−d)² that the .dist file recomputes (io.h:38-48).
+    fp32 Σ(q−d)² that the .dist file recomputes (io.h:38-48). With
+    ``oid`` this is the JAX ``finalize_view`` for reordered views:
+    ``cand_ids`` are view positions, refined by gathering view rows, and
+    the survivors map to their original ids before the tail padding.
     """
     valid = torch.isfinite(cand_scores)
     rows = Vp[cand_ids.long()]                           # (B, k', 128)
     exact = exact_distances(qb.qV, rows).masked_fill(~valid, float("inf"))
     sel_d, sel_ids = final_topk(exact, cand_ids, k)
+    if oid is not None:
+        sel_ids = oid[sel_ids.long()]
     return finalize_with_tail(sel_d, sel_ids, tail_V, qb, n, k)
 
 

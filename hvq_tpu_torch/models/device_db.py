@@ -47,6 +47,28 @@ def upload(host: np.ndarray | torch.Tensor, device: torch.device) -> torch.Tenso
     return out
 
 
+def upload_async(host: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Small host array → device tensor without waiting for the device: a
+    pinned copy whose buffer PyTorch's host allocator keeps until the copy
+    has run, so dispatches can be enqueued back to back."""
+    t = torch.from_numpy(np.ascontiguousarray(host))
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def upload_scan_plane(V_scan, shape: tuple, device: torch.device) -> torch.Tensor:
+    """A bf16 scan plane carried over from arrays: any dtype that converts
+    to fp32 exactly (bfloat16, or bf16-valued fp32), stored as bf16."""
+    v32 = torch.from_numpy(np.ascontiguousarray(V_scan, np.float32))
+    if tuple(v32.shape) != tuple(shape):
+        raise ValueError(f"V_scan must be {tuple(shape)}, got {tuple(v32.shape)}")
+    v16 = v32.to(torch.bfloat16)
+    if not torch.equal(v16.float(), v32):
+        raise ValueError("V_scan holds values that bf16 cannot represent")
+    return upload(v16, device)
+
+
 def _host_zeros(shape, device: torch.device) -> torch.Tensor:
     """Zeroed fp32 host buffer, pinned when it is bound for a CUDA device."""
     return torch.zeros(shape, dtype=torch.float32,
@@ -149,13 +171,7 @@ class DeviceDB:
             raise ValueError(f"C, T, d_norms must be ({n_pad},)")
         scan = None
         if V_scan is not None:
-            v32 = torch.from_numpy(np.ascontiguousarray(V_scan, np.float32))
-            if v32.shape != Vp.shape:
-                raise ValueError(f"V_scan must be {Vp.shape}, got {tuple(v32.shape)}")
-            v16 = v32.to(torch.bfloat16)
-            if not torch.equal(v16.float(), v32):
-                raise ValueError("V_scan holds values that bf16 cannot represent")
-            scan = upload(v16, device)
+            scan = upload_scan_plane(V_scan, Vp.shape, device)
         C_dev, T_dev, dn_dev = (upload(x, device) for x in cols)
         return cls(
             Vp=upload(Vp, device), C=C_dev, T=T_dev, d_norms=dn_dev, n=int(n),

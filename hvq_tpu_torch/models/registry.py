@@ -20,6 +20,7 @@ from typing import Callable
 _ENGINES = {
     "batched": ("hvq_tpu_torch.models.batched", "BatchedEngine"),
     "oracle": ("hvq_tpu.models.oracle", "OracleEngine"),
+    "partitioned": ("hvq_tpu_torch.models.partitioned", "PartitionedEngine"),
 }
 
 

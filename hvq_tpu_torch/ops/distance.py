@@ -48,10 +48,11 @@ def _check_ieee_fp32() -> None:
 
 
 def mm_nt(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """fp32 ``a @ bᵀ`` — refuses to run under TF32 on a CUDA device."""
+    """fp32 ``a @ bᵀ`` over the last two dims (batched for 3-D operands) —
+    refuses to run under TF32 on a CUDA device."""
     if a.is_cuda:
         _check_ieee_fp32()
-    return torch.matmul(a.float(), b.float().t())
+    return torch.matmul(a.float(), b.float().transpose(-1, -2))
 
 
 def split_bf16(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -63,7 +64,8 @@ def split_bf16(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def dot_nt(q: torch.Tensor, V: torch.Tensor, precision: str) -> torch.Tensor:
-    """(B, Dt) fp32 q·Vᵀ at one of the three precision names."""
+    """(B, Dt) fp32 q·Vᵀ at one of the three precision names; (G, B, Dt)
+    for a batch of (G, B, 128) queries against (G, Dt, 128) rows."""
     if precision == "highest":
         return mm_nt(q, V)
     if precision == "high":

@@ -214,3 +214,73 @@ def test_lane_engine_on_cuda_matches_oracle(cuda, impl, name):
         recompute_result_distances(ds, qs, oids.astype(np.int64)),
     )
     assert res.ok, res
+
+
+def _partitioned_case(device, scan_store="fp32"):
+    """A small partitioned engine on the card whose one search runs every
+    route: full batches, windows on the time view, routed groups."""
+    from hvq_tpu.utils.generators import generate_dataset, generate_queries
+    from hvq_tpu_torch import get_engine
+
+    ds = generate_dataset(131072, seed=12, categories=30)
+    rng = np.random.default_rng(13)
+    mixed = generate_queries(256, seed=14, categories=30)
+    l = rng.uniform(0.5, 2.5, 256).astype(np.float32)
+    wide = type(mixed)(qtype=np.full(256, 2, np.int32), v=np.full(256, -1.0, np.float32),
+                       l=l, r=rng.uniform(l, 4.0).astype(np.float32),
+                       V=rng.uniform(-6, 6, (256, 100)).astype(np.float32))
+    qs = type(mixed)(**{k: np.concatenate([getattr(mixed, k), getattr(wide, k)])
+                        for k in ("qtype", "v", "l", "r", "V")})
+    eng = get_engine("partitioned")(ds, device=device, db_tile=2048, query_batch=128,
+                                    route_buckets=(4096,), time_view_min_queries=1,
+                                    scan_store=scan_store)
+    return ds, qs, eng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scan_store", ["fp32", "bf16"])
+def test_partitioned_engine_on_cuda_matches_oracle_through_k1(cuda, scan_store):
+    from hvq_tpu.models.oracle import search_oracle
+    from hvq_tpu.utils.compare import compare_distances, recall_at_k
+    from hvq_tpu.utils.formats import recompute_result_distances
+
+    ds, qs, eng = _partitioned_case(cuda, scan_store)
+    for sp in (1.0, 0.6):
+        kernels.reset_launches()
+        ids, dists = eng.search(qs, sample_proportion=sp)
+        route = eng.last_route
+        assert route["full"] and route["windowed"] and route["routed_cat"]
+        want = (route["full_batches"] + sum(route["windowed_batches"].values())
+                + route["ladder"].get("rung1_runs", 0))
+        assert kernels.launches == {**dict.fromkeys(kernels.launches, 0),
+                                    "packed_scan_v3": want}
+        oids, odists = search_oracle(ds, qs, sample_proportion=sp)
+        assert recall_at_k(ids, oids, dists, odists) == 1.0
+        res = compare_distances(
+            recompute_result_distances(ds, qs, ids.astype(np.int64)),
+            recompute_result_distances(ds, qs, oids.astype(np.int64)),
+        )
+        assert res.ok, res
+
+
+@pytest.mark.cuda
+def test_partitioned_window_k1_matches_plain_on_the_time_view(cuda):
+    """One windowed batch's K1 call (its own queries, row0/ntw over the
+    time view's permuted oid) against the plain version on the same
+    inputs."""
+    from hvq_tpu_torch.models.batched import unpack_query_block
+
+    _, qs, eng = _partitioned_case(cuda)
+    eng.search(qs)
+    row0, ntw, chunk = eng.last_windows[0]
+    tv = eng.index.time_view
+    qb = unpack_query_block(torch.from_numpy(eng._pack_queries(qs)[chunk]).to(cuda))
+    sn = row0 + tv.db_tile          # kept rows lie on both sides of sn
+    args = (tv.scan_V, tv.C, tv.T, tv.d_norms, tv.oid, qb.qV, *qb[1:])
+    kw = dict(db_tile=tv.db_tile, bin_top=eng.bin_top, row0=row0, ntw=ntw)
+    a = _agree(args, sn, **kw)
+    assert a["ok"], a
+    d, pos = kernels.packed_scan_v3(*args, sn, **kw)
+    kept = pos[torch.isfinite(d)].long()
+    assert int(pos.min()) >= row0 and int(pos.max()) < row0 + ntw * tv.db_tile
+    assert bool((tv.oid[kept] < sn).all()) and bool((kept >= sn).any())

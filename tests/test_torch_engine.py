@@ -167,7 +167,7 @@ def test_from_arrays_rejects_a_scan_plane_bf16_cannot_hold():
 
 
 def test_registry():
-    assert available_engines() == ["batched", "oracle"]
+    assert available_engines() == ["batched", "oracle", "partitioned"]
     assert get_engine("batched") is BatchedEngine
     with pytest.raises(KeyError):
         get_engine("paged")

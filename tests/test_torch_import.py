@@ -39,6 +39,24 @@ def test_import_and_cpu_search_leave_jax_unloaded():
     assert proc.stdout.strip() == "[]"
 
 
+def test_partitioned_modules_and_cpu_search_leave_jax_unloaded():
+    proc = _run(
+        "import sys\n"
+        "import hvq_tpu_torch.models.partitioned, hvq_tpu_torch.index.partition\n"
+        "assert 'jax' not in sys.modules\n"
+        "from hvq_tpu.utils.generators import generate_dataset, generate_queries\n"
+        "from hvq_tpu_torch import get_engine\n"
+        "ds = generate_dataset(3000, seed=1, categories=20)\n"
+        "qs = generate_queries(8, seed=2, categories=20)\n"
+        "eng = get_engine('partitioned')(ds, device='cpu', db_tile=512, query_batch=8)\n"
+        "ids, dists = eng.search(qs)\n"
+        "assert ids.shape == (8, 100)\n"
+        "print(sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')))\n"
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
+
+
 def test_kernel_module_imports_without_nvcc_and_build_says_why(tmp_path):
     proc = _run(
         "from hvq_tpu_torch.ops import kernels\n"
