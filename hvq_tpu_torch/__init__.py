@@ -1,22 +1,26 @@
 """hvq_tpu_torch — the PyTorch and CUDA port of ``hvq_tpu``.
 
 Exact hybrid k-NN (k=100) over 100-dim float32 vectors with categorical
-``C == v`` and timestamp ``l <= T <= r`` predicates, on one NVIDIA GPU
-(or the CPU, through the kernels' plain PyTorch versions). The JAX package
-``hvq_tpu`` is the reference each part is checked against; its NumPy host
-layer (constants, binary formats, generators, comparator, oracle) is
-imported from there, and nothing here imports jax.
+``C == v`` and timestamp ``l <= T <= r`` predicates, on one NVIDIA GPU by
+default (or, when asked with ``device="cpu"``, the CPU through the
+kernels' plain PyTorch versions). The JAX package ``hvq_tpu`` is the
+reference each part is checked against; nothing here imports it or jax.
+The NumPy host layer (constants, binary formats, generators, comparator,
+oracle) is the port's own copy of the JAX package's.
 
 Package layout::
 
     hvq_tpu_torch/
+      constants.py  record widths, k, the 0.002 tolerance
       models/  engines (batched and partitioned exact), device database,
-               shared finalize
+               shared finalize, the NumPy oracle
       index/   sorted views of the partitioned engine (host range routing)
       ops/     distances, masks, top-k, the packed scan and its kernels
       csrc/    hand-written CUDA kernels (built with nvcc at first use)
-      utils/   phase timers
+      utils/   binary formats, generators, comparator, phase timers,
+               kernel-vs-plain agreement checks
       cli/     ``python -m hvq_tpu_torch.cli run``
+      tools/   ``python -m hvq_tpu_torch.tools.profile_partitioned``
 """
 
 __version__ = "0.1.0"

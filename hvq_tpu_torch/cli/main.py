@@ -7,10 +7,10 @@ analogue).
 reads the contest binary files, runs an engine (batched, partitioned or
 oracle) on the named device, and
 writes ``output.bin`` (headerless uint32 ids) and ``output.bin.dist``
-(distances recomputed from the ids) through ``hvq_tpu.utils.formats``.
-Generating data and comparing ``.dist`` files stay with
-``python -m hvq_tpu.cli gen-data | gen-queries | compare``, which import
-no jax.
+(distances recomputed from the ids) through the port's
+``hvq_tpu_torch.utils.formats``, whose files are byte-identical to the JAX
+package's. Generating data and comparing ``.dist`` files stay with
+``python -m hvq_tpu.cli gen-data | gen-queries | compare``.
 
 Exit codes: 0 = ok, 1 = usage error.
 """
@@ -23,7 +23,7 @@ import time
 
 
 def _cmd_run(args) -> int:
-    from hvq_tpu.utils import formats
+    from hvq_tpu_torch.utils import formats
     from hvq_tpu_torch.models.registry import get_engine
     from hvq_tpu_torch.utils.timing import PhaseTimer
 

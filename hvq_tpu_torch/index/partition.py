@@ -32,8 +32,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from hvq_tpu import constants as _c
-from hvq_tpu.utils.formats import Dataset
+from hvq_tpu_torch import constants as _c
+from hvq_tpu_torch.utils.formats import Dataset
 from hvq_tpu_torch.models.device_db import resolve_device, upload, upload_scan_plane
 
 # Row chunks of the on-device permutation gather: the temporary of one
@@ -85,7 +85,7 @@ class SortedView:
                              self.d_norms, self.oid) if t is not None)
 
     @classmethod
-    def from_arrays(cls, src, device: torch.device | str = "cpu") -> "SortedView":
+    def from_arrays(cls, src, device: torch.device | str = "cuda") -> "SortedView":
         """A view from arrays another engine already laid out.
 
         ``src`` has a SortedView's attributes (``Vp``, ``V_scan``, ``C``,
@@ -211,7 +211,7 @@ class PartitionedIndex:
 
     @classmethod
     def build(cls, ds: Dataset, db_tile: int = 8192,
-              device: torch.device | str = "cpu", scan_store: str = "fp32",
+              device: torch.device | str = "cuda", scan_store: str = "fp32",
               row_multiple: int | None = None):
         """Sort on the host and build the cat view; the time view is built
         on first use (:attr:`time_view`).
@@ -254,7 +254,7 @@ class PartitionedIndex:
     @classmethod
     def from_arrays(cls, cat_view, T_sorted, time_view=None,
                     ds: Dataset | None = None,
-                    device: torch.device | str = "cpu") -> "PartitionedIndex":
+                    device: torch.device | str = "cuda") -> "PartitionedIndex":
         """An index from views another engine already laid out (see
         :meth:`SortedView.from_arrays`), e.g. ``jax_index.cat_view``,
         ``jax_index.T_sorted`` and ``jax_index._time_view``. With no

@@ -46,8 +46,8 @@ import functools
 import numpy as np
 import torch
 
-from hvq_tpu import constants as _c
-from hvq_tpu.utils.formats import Dataset, QuerySet
+from hvq_tpu_torch import constants as _c
+from hvq_tpu_torch.utils.formats import Dataset, QuerySet
 from hvq_tpu_torch.models import common
 from hvq_tpu_torch.models.device_db import DeviceDB, resolve_device, upload
 from hvq_tpu_torch.ops import kernels
@@ -70,7 +70,10 @@ QPACK_W = _c.VEC_DIM + 4
 # worst-order fp32 accumulation over ≤128 lanes (≈7.63e-6·‖q‖‖d‖) with the
 # 2× cross-term factor and ~2× margin; the packed key truncates 7 mantissa
 # bits (2⁻¹⁶ relative, rounding down); the bf16 scan plane carries ≤2⁻⁹
-# relative rounding per operand.
+# relative rounding per operand. K1 forms its product as the TPU kernel
+# does, bf16 operands on the tensor cores (wgmma) with fp32 accumulation in
+# an order and rounding Hopper does not document; chip_smoke.py measures
+# the share of this slack it uses on both planes at adversarial norms.
 _CERT_REL_MM = 1.6e-5      # × (‖q‖² + max ‖d‖²)
 _CERT_REL_T = 2.0 ** -13   # × t  (covers key quantization ×8 margin)
 _CERT_ABS = 1e-6
@@ -271,7 +274,7 @@ class BatchedEngine:
     def __init__(
         self,
         ds: Dataset,
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
         db_tile: int | None = None,
         query_batch: int | None = None,
         scan_impl: str = "auto",

@@ -18,7 +18,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from hvq_tpu import constants as _c
+from hvq_tpu_torch import constants as _c
 from hvq_tpu_torch.ops.distance import exact_distances, tile_scores
 from hvq_tpu_torch.ops.masks import block_mask
 from hvq_tpu_torch.ops.topk import final_topk, merge_topk

@@ -20,15 +20,26 @@ from typing import Optional
 import numpy as np
 import torch
 
-from hvq_tpu import constants as _c
-from hvq_tpu.utils.formats import Dataset
+from hvq_tpu_torch import constants as _c
+from hvq_tpu_torch.utils.formats import Dataset
 
 
 def resolve_device(device: torch.device | str) -> torch.device:
-    """The device with its index spelled out ("cuda" → "cuda:<current>")."""
+    """The device with its index spelled out ("cuda" → "cuda:<current>").
+
+    Engines and views default to ``"cuda"``; without a card that raises
+    here, never falls back: the CPU runs only when asked (``device="cpu"``).
+    """
     device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "device 'cuda' (the default) needs an NVIDIA GPU and a CUDA "
+                "build of torch; pass device='cpu' to run the plain PyTorch "
+                "versions on the CPU"
+            )
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
     return device
 
 
@@ -108,7 +119,7 @@ class DeviceDB:
         ds: Dataset,
         db_tile: int = 16384,
         scan_store: str = "fp32",
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
     ) -> "DeviceDB":
         """Upload a host Dataset, lane-padding columns and tile-padding rows.
 
@@ -149,7 +160,7 @@ class DeviceDB:
         n: int,
         db_tile: int,
         V_scan: np.ndarray | None = None,
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
     ) -> "DeviceDB":
         """A database from arrays another engine already laid out.
 

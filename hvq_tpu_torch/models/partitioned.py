@@ -50,8 +50,8 @@ from collections import Counter
 import numpy as np
 import torch
 
-from hvq_tpu import constants as _c
-from hvq_tpu.utils.formats import Dataset, QuerySet
+from hvq_tpu_torch import constants as _c
+from hvq_tpu_torch.utils.formats import Dataset, QuerySet
 from hvq_tpu_torch.index.partition import PartitionedIndex, SortedView
 from hvq_tpu_torch.models import common
 from hvq_tpu_torch.models.batched import (
@@ -93,7 +93,7 @@ class PartitionedEngine:
     def __init__(
         self,
         ds: Dataset,
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
         db_tile: int | None = None,
         query_batch: int = 1024,
         kprime: int | None = None,

@@ -15,11 +15,11 @@ from __future__ import annotations
 import importlib
 from typing import Callable
 
-# name → (module, class). The oracle is the JAX package's NumPy oracle,
-# which imports no jax; it accepts and ignores ``device=``.
+# name → (module, class). The oracle is the port's NumPy oracle, a copy of
+# the JAX package's; it accepts and ignores ``device=``.
 _ENGINES = {
     "batched": ("hvq_tpu_torch.models.batched", "BatchedEngine"),
-    "oracle": ("hvq_tpu.models.oracle", "OracleEngine"),
+    "oracle": ("hvq_tpu_torch.models.oracle", "OracleEngine"),
     "partitioned": ("hvq_tpu_torch.models.partitioned", "PartitionedEngine"),
 }
 

@@ -15,7 +15,9 @@ needs no ``nvcc``.
 
 Each wrapper runs its kernel's plain PyTorch version (in ``ops/scan.py``)
 for tensors on the CPU and launches the kernel for CUDA tensors, or
-raises: there is no fallback. ``launches`` counts kernel launches only.
+raises: there is no fallback. ``launches`` counts kernel launches only;
+``k1_body_launches`` splits K1's by body (tensor cores for ``bin_top`` ≤
+8, CUDA cores above: dispatch on shape, both built and checked).
 """
 
 from __future__ import annotations
@@ -57,6 +59,10 @@ CUDA_ROOTS = ("/usr/local/cuda",)
 # Kernel launches by wrapper name, since import or the last reset().
 launches = {"packed_scan_v3": 0, "packed_scan": 0, "packed_scan_v2": 0,
             "bin_scan": 0}
+# K1's launches by body (csrc/packed_scan_v3.cu): the tensor-core body for
+# bin_top ≤ 8, the CUDA-core body above; the library says which runs.
+k1_body_launches = {"wgmma": 0, "simt": 0}
+_K1_BODIES = ("wgmma", "simt")
 
 # ``mode`` of the C entry point hvq_lane_scan for each lane-layout kernel.
 _LANE_MODES = {"packed_scan": 0, "packed_scan_v2": 1, "bin_scan": 2}
@@ -67,8 +73,9 @@ build_info: dict = {}
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, k1_body_launches):
+        for name in counts:
+            counts[name] = 0
 
 
 def nvcc_path() -> str:
@@ -95,13 +102,13 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
-def _compile(nvcc: str, tmp: Path) -> tuple[float, str]:
+def _compile(nvcc: str, tmp: Path, sources=_SOURCES) -> tuple[float, str]:
     """nvcc every source to an object, all at once, then link one library
     at ``tmp``. Returns (seconds, compiler output)."""
     t0 = time.perf_counter()
-    objs = [tmp.with_name(f"{tmp.stem}.{src.stem}.o") for src in _SOURCES]
+    objs = [tmp.with_name(f"{tmp.stem}.{src.stem}.o") for src in sources]
     cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
-            for src, o in zip(_SOURCES, objs)]
+            for src, o in zip(sources, objs)]
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for c in cmds]
@@ -143,27 +150,34 @@ def build() -> ctypes.CDLL:
             seconds, log = _compile(nvcc, tmp)
             os.replace(tmp, so)
             compiled = True
-        lib = ctypes.CDLL(str(so))
-        fn = lib.hvq_packed_scan_v3
-        fn.restype = ctypes.c_int
-        fn.argtypes = (
-            [ctypes.c_void_p, ctypes.c_int]          # V, v_bf16
-            + [ctypes.c_void_p] * 11                  # C T dn oid q qn ac v at l r
-            + [ctypes.c_int] * 6                      # sn B db_tile R t0 ntw
-            + [ctypes.c_void_p] * 3                   # out_d out_p stream
-        )
-        fn = lib.hvq_lane_scan
-        fn.restype = ctypes.c_int
-        fn.argtypes = (
-            [ctypes.c_int]                            # mode
-            + [ctypes.c_void_p] * 12                  # V C T dn oid q qn ac v at l r
-            + [ctypes.c_int] * 5                      # sn B n_pad db_tile R
-            + [ctypes.c_void_p] * 3                   # out_d out_i stream
-        )
         build_info.update(path=str(so), compiled=compiled, seconds=seconds,
                           log=log)
-        _lib = lib
-        return lib
+        _lib = _load(so)
+        return _lib
+
+
+def _load(so: Path) -> ctypes.CDLL:
+    """Load a kernel library and declare its C entry points."""
+    lib = ctypes.CDLL(str(so))
+    fn = lib.hvq_packed_scan_v3
+    fn.restype = ctypes.c_int
+    fn.argtypes = (
+        [ctypes.c_void_p, ctypes.c_int]          # V, v_bf16
+        + [ctypes.c_void_p] * 11                  # C T dn oid q qn ac v at l r
+        + [ctypes.c_int] * 7                      # sn B n_pad db_tile R t0 ntw
+        + [ctypes.c_void_p] * 3                   # out_d out_p stream
+    )
+    lib.hvq_packed_scan_v3_body.restype = ctypes.c_int
+    lib.hvq_packed_scan_v3_body.argtypes = [ctypes.c_int]
+    fn = lib.hvq_lane_scan
+    fn.restype = ctypes.c_int
+    fn.argtypes = (
+        [ctypes.c_int]                            # mode
+        + [ctypes.c_void_p] * 12                  # V C T dn oid q qn ac v at l r
+        + [ctypes.c_int] * 5                      # sn B n_pad db_tile R
+        + [ctypes.c_void_p] * 3                   # out_d out_i stream
+    )
+    return lib
 
 
 def _check(name, t, dtype, shape, device):
@@ -211,7 +225,8 @@ def _launch(name, device, B, W, qV, active_c, active_t, call):
     """Run kernel ``name`` on the device's current stream: derives its
     query inputs, allocates its (B, W) fp32 and int32 outputs, passes
     ``call(qn, ac, at, out_d, out_i, stream)`` their pointers, raises on a
-    launch error and counts the launch."""
+    launch error (a cudaError_t, or −CUresult when K1's tensor map cannot
+    be encoded) and counts the launch."""
     qn = (qV * qV).sum(dim=1)
     ac = active_c.to(torch.int32)
     at = active_t.to(torch.int32)
@@ -222,7 +237,8 @@ def _launch(name, device, B, W, qV, active_c, active_t, call):
         err = call(qn.data_ptr(), ac.data_ptr(), at.data_ptr(),
                    out_d.data_ptr(), out_i.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+        raise RuntimeError(f"{name} launch failed: " + (
+            f"cudaError {err}" if err > 0 else f"tensor map encode, CUresult {-err}"))
     launches[name] += 1
     return out_d, out_i
 
@@ -241,7 +257,8 @@ def packed_scan_v3(
     nt = n_pad/db_tile or ``ntw`` for a window starting at the
     tile-aligned ``row0``. ``Vs`` is the scan plane: (n_pad, 128) fp32 or
     bf16. CPU tensors run :func:`packed_scan_plain`; CUDA tensors launch
-    the kernel.
+    the kernel: its tensor-core body for ``bin_top`` ≤ 8, its CUDA-core body
+    above (counted apart in ``k1_body_launches``).
     """
     device, n_pad, B = _check_scan_args(
         Vs, (torch.float32, torch.bfloat16), C, T, dn, oid, qV, active_c, v,
@@ -253,18 +270,23 @@ def packed_scan_v3(
             Vs, C, T, dn, oid, qV, active_c, v, active_t, l, r, sn,
             db_tile=db_tile, bin_top=bin_top, row0=row0, ntw=ntw,
         )
-    fn = build().hvq_packed_scan_v3
-    return _launch(
+    if qV.data_ptr() % 16:             # read as float4s
+        raise ValueError("qV must be 16-byte aligned")
+    lib = build()
+    fn = lib.hvq_packed_scan_v3
+    out = _launch(
         "packed_scan_v3", device, B, nt * bin_top * (db_tile // BIN), qV,
         active_c, active_t,
         lambda qn, ac, at, out_d, out_p, stream: fn(
             Vs.data_ptr(), int(Vs.dtype == torch.bfloat16),
             C.data_ptr(), T.data_ptr(), dn.data_ptr(), oid.data_ptr(),
             qV.data_ptr(), qn, ac, v.data_ptr(), at, l.data_ptr(),
-            r.data_ptr(), sn, B, db_tile, bin_top, t0, nt, out_d, out_p,
-            stream,
+            r.data_ptr(), sn, B, n_pad, db_tile, bin_top, t0, nt, out_d,
+            out_p, stream,
         ),
     )
+    k1_body_launches[_K1_BODIES[lib.hvq_packed_scan_v3_body(bin_top)]] += 1
+    return out
 
 
 def _lane_scan(name, Vp, C, T, dn, oid, qV, active_c, v, active_t, l, r, sn,

@@ -14,10 +14,16 @@ import numpy as np
 import pytest
 import torch
 
+from hvq_tpu_torch.models.oracle import search_oracle
 from hvq_tpu_torch.ops import kernels
 from hvq_tpu_torch.ops.masks import query_predicate_fields
 from hvq_tpu_torch.ops.scan import packed_scan_plain
 from hvq_tpu_torch.utils.check import bin_scan_agreement, scan_agreement
+from hvq_tpu_torch.utils.compare import compare_distances, recall_at_k
+from hvq_tpu_torch.utils.formats import recompute_result_distances
+from hvq_tpu_torch.utils.generators import generate_dataset, generate_queries
+
+from torch_certificate import certificate_stress
 
 REL_MM = 1.6e-5   # the fp32-plane certificate slack (models.batched)
 
@@ -106,10 +112,6 @@ def test_kernel_wrapper_raises_instead_of_falling_back(cuda):
 
 @pytest.mark.cuda
 def test_engine_on_cuda_matches_oracle(cuda):
-    from hvq_tpu.models.oracle import search_oracle
-    from hvq_tpu.utils.compare import compare_distances, recall_at_k
-    from hvq_tpu.utils.formats import recompute_result_distances
-    from hvq_tpu.utils.generators import generate_dataset, generate_queries
     from hvq_tpu_torch import get_engine
 
     ds = generate_dataset(40000, seed=8, categories=30)
@@ -195,10 +197,6 @@ def test_lane_wrapper_raises_instead_of_falling_back(cuda, name):
 @pytest.mark.parametrize("impl,name", [("v1", "packed_scan"),
                                        ("v2", "packed_scan_v2")])
 def test_lane_engine_on_cuda_matches_oracle(cuda, impl, name):
-    from hvq_tpu.models.oracle import search_oracle
-    from hvq_tpu.utils.compare import compare_distances, recall_at_k
-    from hvq_tpu.utils.formats import recompute_result_distances
-    from hvq_tpu.utils.generators import generate_dataset, generate_queries
     from hvq_tpu_torch import get_engine
 
     ds = generate_dataset(40000, seed=8, categories=30)
@@ -219,7 +217,6 @@ def test_lane_engine_on_cuda_matches_oracle(cuda, impl, name):
 def _partitioned_case(device, scan_store="fp32"):
     """A small partitioned engine on the card whose one search runs every
     route: full batches, windows on the time view, routed groups."""
-    from hvq_tpu.utils.generators import generate_dataset, generate_queries
     from hvq_tpu_torch import get_engine
 
     ds = generate_dataset(131072, seed=12, categories=30)
@@ -240,10 +237,6 @@ def _partitioned_case(device, scan_store="fp32"):
 @pytest.mark.cuda
 @pytest.mark.parametrize("scan_store", ["fp32", "bf16"])
 def test_partitioned_engine_on_cuda_matches_oracle_through_k1(cuda, scan_store):
-    from hvq_tpu.models.oracle import search_oracle
-    from hvq_tpu.utils.compare import compare_distances, recall_at_k
-    from hvq_tpu.utils.formats import recompute_result_distances
-
     ds, qs, eng = _partitioned_case(cuda, scan_store)
     for sp in (1.0, 0.6):
         kernels.reset_launches()
@@ -284,3 +277,101 @@ def test_partitioned_window_k1_matches_plain_on_the_time_view(cuda):
     kept = pos[torch.isfinite(d)].long()
     assert int(pos.min()) >= row0 and int(pos.max()) < row0 + ntw * tv.db_tile
     assert bool((tv.oid[kept] < sn).all()) and bool((kept >= sn).any())
+
+
+_K1_INPUTS = {}
+
+
+def _k1_inputs(device, plane, B):
+    """Cached K1 inputs: 32768 rows, B queries with mixed predicates."""
+    key = (plane, B)
+    if key not in _K1_INPUTS:
+        _K1_INPUTS[key] = _inputs(device, plane, B=B, seed=11 + B)
+    return _K1_INPUTS[key]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plane", ["fp32", "bf16"])
+@pytest.mark.parametrize("R", [1, 2, 3, 4, 6, 8, 24, 128])
+@pytest.mark.parametrize("db_tile", [1024, 16384])
+def test_k1_matches_plain_over_depths_tiles_and_batches(cuda, plane, R, db_tile):
+    """K1's two bodies (wgmma for R ≤ 8, simt above) against the plain
+    version, at batches that fill no, one and many 64-query blocks."""
+    for B in (1, 40, 100, 1024):
+        a = _agree(_k1_inputs(cuda, plane, B), 30000, db_tile=db_tile, bin_top=R)
+        assert a["ok"], (B, a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plane", ["fp32", "bf16"])
+@pytest.mark.parametrize("R", [3, 6, 24])
+def test_k1_window_with_permuted_oid_matches_plain(cuda, plane, R):
+    args = list(_inputs(cuda, plane, B=100, seed=21))
+    args[4] = torch.randperm(args[4].numel(), generator=torch.Generator().manual_seed(1)
+                             ).to(cuda, torch.int32)
+    kw = dict(db_tile=1024, bin_top=R, row0=5 * 1024, ntw=9)
+    a = _agree(args, 20000, **kw)
+    assert a["ok"], a
+    d, pos = kernels.packed_scan_v3(*args, 20000, **kw)
+    kept = pos[torch.isfinite(d)].long()
+    assert int(pos.min()) >= 5 * 1024 and int(pos.max()) < 14 * 1024
+    assert bool((args[4][kept] < 20000).all())
+
+
+@pytest.mark.cuda
+def test_k1_counts_launches_per_body(cuda):
+    args = _inputs(cuda)
+    kernels.reset_launches()
+    for R in (1, 3, 4, 6, 8):
+        kernels.packed_scan_v3(*args, 100, db_tile=1024, bin_top=R)
+    for R in (9, 24):
+        kernels.packed_scan_v3(*args, 100, db_tile=1024, bin_top=R)
+    assert kernels.k1_body_launches == {"wgmma": 5, "simt": 2}
+    assert kernels.launches["packed_scan_v3"] == 7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scan_store", ["fp32", "bf16"])
+@pytest.mark.parametrize("scale", [1.0, 64.0, 4096.0])
+def test_k1_certificate_slack_boundary_stress(cuda, scan_store, scale):
+    counts = certificate_stress(cuda, scan_store, scale)
+    assert counts["wgmma"] >= 1 and counts["simt"] == 0, counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plane", ["fp32", "bf16"])
+def test_k1_exact_duplicate_keys_zero_not_negative_zero(cuda, plane):
+    """Query 3's exact duplicate (row 17) comes first at a distance within
+    the matmul slack of 0, and no kept distance is −0.0 (a negative key)."""
+    args = list(_inputs(cuda, plane, B=40, seed=5))
+    Vf = args[0].float()
+    Vf[17] = args[5][3]
+    args[0] = Vf.to(args[0].dtype)
+    args[3] = (Vf * Vf).sum(1)
+    B = args[5].shape[0]
+    args[6:] = query_predicate_fields(*(torch.zeros(B, device=cuda) for _ in range(4)))
+    for R in (1, 3):
+        d, p = kernels.packed_scan_v3(*args, 32768, db_tile=1024, bin_top=R)
+        i = int(torch.argmin(d[3]))
+        slack = (8e-3 if plane == "bf16" else REL_MM) * 2 * float((args[5][3] ** 2).sum())
+        assert int(p[3, i]) == 17 and 0.0 <= float(d[3, i]) <= slack
+        assert not torch.signbit(d).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plane", ["fp32", "bf16"])
+@pytest.mark.parametrize("db_tile,R", [(16384, 1), (16384, 2), (16384, 3), (16384, 6),
+                                       (1024, 3)])
+def test_k1_is_deterministic(cuda, plane, db_tile, R):
+    """Five runs on the same inputs give bit-identical outputs. A race in
+    K1's shared-memory ring shows first as run-to-run differences: 1-D TMA
+    boxes for the per-slice attributes once gave them on the fp32 plane
+    over 8 tiles of 16384 rows at R ≤ 3, B=1024, with two CTAs an SM. That
+    is the shape here."""
+    args = _inputs(cuda, plane, n_pad=8 * 16384, B=1024, seed=41)
+    kw = dict(db_tile=db_tile, bin_top=R)
+    d0, p0 = kernels.packed_scan_v3(*args, 120000, **kw)
+    for _ in range(4):
+        d, p = kernels.packed_scan_v3(*args, 120000, **kw)
+        assert torch.equal(d.view(torch.int32), d0.view(torch.int32))
+        assert torch.equal(p, p0)

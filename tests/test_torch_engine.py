@@ -55,7 +55,7 @@ def test_engine_matches_oracle(ds_qs, scan_impl, scan_store):
 @pytest.mark.parametrize("p", [0.5, 0.0])
 def test_sample_proportion(ds_qs, p):
     ds, qs = ds_qs
-    eng = BatchedEngine(ds, query_batch=16)
+    eng = BatchedEngine(ds, query_batch=16, device="cpu")
     ids, _ = _exact(ds, qs, eng, sample_proportion=p)
     if p == 0.0:       # nothing scanned: every slot is a tail pad
         pads = np.arange(ds.n - 100, ds.n)
@@ -65,13 +65,13 @@ def test_sample_proportion(ds_qs, p):
 def test_heavy_pad_path():
     ds = generate_dataset(1500, seed=32, categories=500)
     qs = generate_queries(24, seed=33, categories=500)
-    _exact(ds, qs, BatchedEngine(ds, query_batch=8))
+    _exact(ds, qs, BatchedEngine(ds, query_batch=8, device="cpu"))
 
 
 def test_ragged_sizes():
     ds = generate_dataset(777, seed=34, categories=20)
     qs = generate_queries(13, seed=35, categories=20)
-    eng = BatchedEngine(ds, db_tile=256, query_batch=8)
+    eng = BatchedEngine(ds, db_tile=256, query_batch=8, device="cpu")
     assert eng.db.n_pad == 1024
     _exact(ds, qs, eng)
 
@@ -83,7 +83,7 @@ def test_bin_concentration_flags_and_ladder_restores(scan_store):
     keep. The certificate must flag, the ladder must escalate to the
     streaming rung, and the result must stay exact."""
     ds, qs, hot = _adversarial_pair(db_tile=16384)
-    eng = BatchedEngine(ds, query_batch=8, scan_store=scan_store)
+    eng = BatchedEngine(ds, query_batch=8, scan_store=scan_store, device="cpu")
     assert 2 * eng.bin_top < hot.size
     ids, _ = _exact(ds, qs, eng)
     lad = eng.last_ladder
@@ -97,8 +97,8 @@ def test_uncertified_scan_loses_the_concentrated_bin():
     """The layout is genuinely adversarial: without the certificate the
     packed scan at the same R drops part of the hot bin."""
     ds, qs, _ = _adversarial_pair(db_tile=16384)
-    R = BatchedEngine(ds, query_batch=8).bin_top
-    eng = BatchedEngine(ds, query_batch=8, certified=False, bin_top=R)
+    R = BatchedEngine(ds, query_batch=8, device="cpu").bin_top
+    eng = BatchedEngine(ds, query_batch=8, certified=False, bin_top=R, device="cpu")
     oids, odists = search_oracle(ds, qs)
     ids, dists = eng.search(qs)
     assert recall_at_k(ids[:1], oids[:1], dists[:1], odists[:1]) < 1.0
@@ -111,7 +111,7 @@ def test_deeper_rung_suffices_on_a_random_layout(monkeypatch):
     ds = generate_dataset(65536, seed=21, categories=20)
     qs = generate_queries(32, seed=22, categories=20)
     eng = BatchedEngine(ds, db_tile=8192, query_batch=32, bin_top=3,
-                        scan_impl="packed")
+                        scan_impl="packed", device="cpu")
     calls = []
     orig = tbatched.packed_scan_plain
     monkeypatch.setattr(tbatched, "packed_scan_plain",
@@ -126,7 +126,7 @@ def test_level2_reduce_runs_and_stays_exact(monkeypatch):
     ds = generate_dataset(65536, seed=13, categories=20)
     qs = generate_queries(32, seed=14, categories=20)
     # W = nt·R·bins = 128·32·4 = 16384: just at the level-2 gate
-    eng = BatchedEngine(ds, db_tile=512, query_batch=32, bin_top=32)
+    eng = BatchedEngine(ds, db_tile=512, query_batch=32, bin_top=32, device="cpu")
     calls = []
     orig = tbatched.binned_stream_topk
     monkeypatch.setattr(tbatched, "binned_stream_topk",
@@ -145,9 +145,9 @@ def test_matches_jax_engine_on_the_same_stored_state(scan_store):
     db = DeviceDB.from_arrays(
         np.asarray(jdb.Vp), np.asarray(jdb.C), np.asarray(jdb.T),
         np.asarray(jdb.d_norms), jdb.n, jdb.db_tile,
-        V_scan=None if jdb.V_scan is None else np.asarray(jdb.V_scan),
+        V_scan=None if jdb.V_scan is None else np.asarray(jdb.V_scan), device="cpu",
     )
-    eng = BatchedEngine(ds, query_batch=16, device_db=db)
+    eng = BatchedEngine(ds, query_batch=16, device_db=db, device="cpu")
     assert (eng.bin_top, eng.kprime, eng.certified) == (
         jeng.bin_top, jeng.kprime, jeng.certified)
     ids, dists = eng.search(qs)
@@ -163,7 +163,7 @@ def test_from_arrays_rejects_a_scan_plane_bf16_cannot_hold():
     V = np.random.default_rng(0).standard_normal((256, 128)).astype(np.float32)
     z = np.zeros(256, np.float32)
     with pytest.raises(ValueError):
-        DeviceDB.from_arrays(V, z, z, z, 200, 256, V_scan=V)
+        DeviceDB.from_arrays(V, z, z, z, 200, 256, V_scan=V, device="cpu")
 
 
 def test_registry():

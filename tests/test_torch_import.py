@@ -1,17 +1,28 @@
-"""The port imports no jax, and importing its kernel module needs no nvcc.
+"""The port imports no jax and nothing of the JAX package, importing its
+kernel module needs no nvcc, and its entry points default to the card.
 
-Each check runs in a fresh interpreter: this test process has jax loaded
-already (tests/conftest.py).
+Each import check runs in a fresh interpreter: this test process has jax
+and hvq_tpu loaded already (tests/conftest.py).
 """
 
+import inspect
 import os
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
+import torch
 
 REPO = Path(__file__).resolve().parent.parent
+
+# Printed by a fresh interpreter: every loaded module of jax or of the JAX
+# package (hvq_tpu, not hvq_tpu_torch).
+_FOREIGN = (
+    "print(sorted(m for m in sys.modules if m in ('jax', 'hvq_tpu')\n"
+    "             or m.startswith(('jax.', 'hvq_tpu.'))))\n"
+)
 
 
 def _run(code: str, **env):
@@ -27,13 +38,13 @@ def test_import_and_cpu_search_leave_jax_unloaded():
     proc = _run(
         "import sys\n"
         "import hvq_tpu_torch\n"
-        "from hvq_tpu.utils.generators import generate_dataset, generate_queries\n"
+        "from hvq_tpu_torch.utils.generators import generate_dataset, generate_queries\n"
         "ds = generate_dataset(3000, seed=1, categories=20)\n"
         "qs = generate_queries(8, seed=2, categories=20)\n"
         "eng = hvq_tpu_torch.get_engine('batched')(ds, device='cpu', query_batch=8)\n"
         "ids, dists = eng.search(qs)\n"
         "assert ids.shape == (8, 100)\n"
-        "print(sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')))\n"
+        + _FOREIGN
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "[]"
@@ -44,17 +55,97 @@ def test_partitioned_modules_and_cpu_search_leave_jax_unloaded():
         "import sys\n"
         "import hvq_tpu_torch.models.partitioned, hvq_tpu_torch.index.partition\n"
         "assert 'jax' not in sys.modules\n"
-        "from hvq_tpu.utils.generators import generate_dataset, generate_queries\n"
+        "from hvq_tpu_torch.utils.generators import generate_dataset, generate_queries\n"
         "from hvq_tpu_torch import get_engine\n"
         "ds = generate_dataset(3000, seed=1, categories=20)\n"
         "qs = generate_queries(8, seed=2, categories=20)\n"
         "eng = get_engine('partitioned')(ds, device='cpu', db_tile=512, query_batch=8)\n"
         "ids, dists = eng.search(qs)\n"
         "assert ids.shape == (8, 100)\n"
-        "print(sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')))\n"
+        + _FOREIGN
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "[]"
+
+
+def test_port_imports_nothing_of_the_jax_package():
+    """The whole port in one interpreter: every module, a CPU search on
+    both engines and the oracle, the CLI help and chip_smoke; afterwards no
+    module of hvq_tpu (only hvq_tpu_torch) and none of jax is loaded."""
+    proc = _run(
+        "import pkgutil, runpy, sys\n"
+        "import hvq_tpu_torch\n"
+        "for m in pkgutil.walk_packages(hvq_tpu_torch.__path__, 'hvq_tpu_torch.'):\n"
+        "    if not m.name.endswith('__main__'):\n"
+        "        __import__(m.name)\n"
+        "from hvq_tpu_torch.utils.generators import generate_dataset, generate_queries\n"
+        "ds = generate_dataset(3000, seed=1, categories=20)\n"
+        "qs = generate_queries(8, seed=2, categories=20)\n"
+        "for name, kw in (('batched', dict(query_batch=8)),\n"
+        "                 ('partitioned', dict(db_tile=512, query_batch=8)),\n"
+        "                 ('oracle', {})):\n"
+        "    ids, _ = hvq_tpu_torch.get_engine(name)(ds, device='cpu', **kw).search(qs)\n"
+        "    assert ids.shape == (8, 100)\n"
+        "sys.argv = ['hvq_tpu_torch', 'run', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('hvq_tpu_torch.cli', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0\n"
+        "import chip_smoke\n"
+        + _FOREIGN
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "[]"
+
+
+def _tiny_ds():
+    from hvq_tpu_torch.utils.generators import generate_dataset
+
+    return generate_dataset(300, seed=1, categories=5)
+
+
+def _view_arrays(n_pad=256):
+    from types import SimpleNamespace
+
+    z = np.zeros(n_pad, np.float32)
+    return SimpleNamespace(Vp=np.zeros((n_pad, 128), np.float32), V_scan=None, C=z,
+                           T=z, d_norms=z, oid=np.arange(n_pad, dtype=np.int32),
+                           C_key=z, T_key=z, n=200, db_tile=128)
+
+
+@pytest.mark.parametrize("name", ["BatchedEngine", "PartitionedEngine",
+                                  "DeviceDB.from_dataset", "DeviceDB.from_arrays",
+                                  "SortedView.from_arrays", "PartitionedIndex.build",
+                                  "PartitionedIndex.from_arrays"])
+def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch, name):
+    """Every engine and view builder defaults to ``device="cuda"``; with
+    the card hidden that default raises a clear error, never a CPU run."""
+    from hvq_tpu_torch.index.partition import PartitionedIndex, SortedView
+    from hvq_tpu_torch.models.batched import BatchedEngine
+    from hvq_tpu_torch.models.device_db import DeviceDB
+    from hvq_tpu_torch.models.partitioned import PartitionedEngine
+
+    owner, _, attr = name.partition(".")
+    fn = {"BatchedEngine": BatchedEngine, "PartitionedEngine": PartitionedEngine,
+          "DeviceDB": DeviceDB, "SortedView": SortedView,
+          "PartitionedIndex": PartitionedIndex}[owner]
+    fn = getattr(fn, attr) if attr else fn
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    ds, view = _tiny_ds(), _view_arrays()
+    call = {
+        "BatchedEngine": lambda: BatchedEngine(ds, query_batch=8),
+        "PartitionedEngine": lambda: PartitionedEngine(ds, db_tile=128),
+        "DeviceDB.from_dataset": lambda: DeviceDB.from_dataset(ds, db_tile=128),
+        "DeviceDB.from_arrays": lambda: DeviceDB.from_arrays(
+            view.Vp, view.C, view.T, view.d_norms, 200, 128),
+        "SortedView.from_arrays": lambda: SortedView.from_arrays(view),
+        "PartitionedIndex.build": lambda: PartitionedIndex.build(ds, db_tile=128),
+        "PartitionedIndex.from_arrays": lambda: PartitionedIndex.from_arrays(
+            view, np.zeros(200, np.float32)),
+    }[name]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call()
 
 
 def test_kernel_module_imports_without_nvcc_and_build_says_why(tmp_path):
@@ -63,6 +154,7 @@ def test_kernel_module_imports_without_nvcc_and_build_says_why(tmp_path):
         "kernels.CUDA_ROOTS = ()\n"
         "assert kernels.launches == {'packed_scan_v3': 0, 'packed_scan': 0,\n"
         "                            'packed_scan_v2': 0, 'bin_scan': 0}\n"
+        "assert kernels.k1_body_launches == {'wgmma': 0, 'simt': 0}\n"
         "try:\n"
         "    kernels.build()\n"
         "except RuntimeError as e:\n"
@@ -82,9 +174,10 @@ def test_cli_help_imports_no_jax():
         "except SystemExit as e:\n"
         "    assert e.code == 0\n"
         "print('jax' in sys.modules)\n"
+        + _FOREIGN
     )
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip().splitlines()[-1] == "False"
+    assert proc.stdout.strip().splitlines()[-2:] == ["False", "[]"]
 
 
 def test_chip_smoke_imports_no_jax_and_refuses_without_a_card():
@@ -94,9 +187,28 @@ def test_chip_smoke_imports_no_jax_and_refuses_without_a_card():
         "import sys, torch\n"
         "import chip_smoke\n"
         "print('jax' in sys.modules)\n"
+        + _FOREIGN +
         "torch.cuda.is_available = lambda: False\n"
         "chip_smoke.main()\n"
     )
     assert proc.returncode != 0
-    assert proc.stdout.strip() == "False"
+    assert proc.stdout.strip().splitlines() == ["False", "[]"]
     assert "no CUDA device" in proc.stderr
+
+
+def test_k1_ablation_edits_find_their_anchors_in_the_source():
+    """tools/k1_ablate builds its variants by anchored edits of K1's
+    source: each anchor must occur exactly once, and each edit must change
+    the text (importing the tool needs no card and no nvcc)."""
+    from hvq_tpu_torch.ops import kernels
+    from hvq_tpu_torch.tools import k1_ablate
+
+    src = kernels._SOURCES[0].read_text()
+    assert k1_ablate.VARIANTS["base"] == ()
+    for name, edits in k1_ablate.VARIANTS.items():
+        text = src
+        for anchor, edit in edits:
+            assert text.count(anchor) == 1, name
+            text = text.replace(anchor, edit)
+        assert (text != src) == bool(edits), name
+        assert text.count("{") == text.count("}"), name

@@ -40,7 +40,7 @@ def _exact(ds, qs, eng, sample_proportion=1.0):
 def test_lane_engine_matches_oracle(impl):
     ds = generate_dataset(32768, seed=30, categories=20)
     qs = generate_queries(32, seed=33, categories=20)
-    eng = BatchedEngine(ds, db_tile=512, query_batch=32, scan_impl=impl)
+    eng = BatchedEngine(ds, db_tile=512, query_batch=32, scan_impl=impl, device="cpu")
     # kernel_bin_top rounds 8 up to 32 so R·bins = 32·4 = 128, as the JAX
     jeng = JaxBatchedEngine(ds, db_tile=512, query_batch=32,
                             scan_impl=JAX_NAME[impl])
@@ -53,7 +53,7 @@ def test_lane_engine_matches_oracle(impl):
 def test_lane_engine_padding_and_sample(impl):
     ds = generate_dataset(32768, seed=31, categories=2000)
     qs = generate_queries(8, seed=32, categories=2000, types=(1, 3))
-    eng = BatchedEngine(ds, db_tile=256, query_batch=8, scan_impl=impl)
+    eng = BatchedEngine(ds, db_tile=256, query_batch=8, scan_impl=impl, device="cpu")
     assert eng.scan_impl == impl
     _exact(ds, qs, eng, sample_proportion=0.6)
 
@@ -63,7 +63,7 @@ def test_lane_engine_non_divisible_query_batch(impl):
     ds = generate_dataset(2048, seed=96, categories=8)
     qs = generate_queries(384, seed=97, categories=8)
     _exact(ds, qs, BatchedEngine(ds, db_tile=512, query_batch=384,
-                                 scan_impl=impl))
+                                 scan_impl=impl, device="cpu"))
 
 
 def _carried(jeng):
@@ -71,7 +71,7 @@ def _carried(jeng):
     return DeviceDB.from_arrays(
         np.asarray(jdb.Vp), np.asarray(jdb.C), np.asarray(jdb.T),
         np.asarray(jdb.d_norms), jdb.n, jdb.db_tile,
-        V_scan=None if jdb.V_scan is None else np.asarray(jdb.V_scan),
+        V_scan=None if jdb.V_scan is None else np.asarray(jdb.V_scan), device="cpu",
     )
 
 
@@ -84,7 +84,7 @@ def test_matches_jax_engine_on_the_same_stored_state(impl, layout):
                             scan_layout=layout)
     assert jeng.db.db_tile == 8192
     eng = BatchedEngine(ds, query_batch=16, scan_impl=impl, scan_layout=layout,
-                        device_db=_carried(jeng))
+                        device_db=_carried(jeng), device="cpu")
     assert eng.db.db_tile == 8192
     assert (eng.bin_top, eng.kprime, eng.certified, eng.scan_layout) == (
         jeng.bin_top, jeng.kprime, jeng.certified, jeng.scan_layout)
@@ -101,7 +101,7 @@ def test_bf16_store_still_scans_the_fp32_plane(impl, monkeypatch):
     only widens the certificate, as in the JAX engine."""
     ds = generate_dataset(20000, seed=38, categories=25)
     qs = generate_queries(24, seed=39, categories=25)
-    eng = BatchedEngine(ds, query_batch=8, scan_impl=impl, scan_store="bf16")
+    eng = BatchedEngine(ds, query_batch=8, scan_impl=impl, scan_store="bf16", device="cpu")
     assert eng.db.V_scan is not None and eng.kprime == 240
     name = "packed_scan" if impl == "v1" else "packed_scan_v2"
     planes = []
@@ -124,7 +124,7 @@ def test_rung1_is_the_packed_scan_in_scan_layout_at_2R(monkeypatch, impl,
     ds = generate_dataset(65536, seed=21, categories=20)
     qs = generate_queries(32, seed=22, categories=20)
     eng = BatchedEngine(ds, query_batch=32, bin_top=2, scan_impl=impl,
-                        scan_layout=layout)
+                        scan_layout=layout, device="cpu")
     calls = []
     for name in ("packed_scan_v3", "packed_scan", "packed_scan_v2"):
         orig = getattr(kernels, name)
@@ -146,7 +146,7 @@ def test_lane_level2_reduce_runs_and_stays_exact(monkeypatch):
     ds = generate_dataset(16384, seed=15, categories=20)
     qs = generate_queries(16, seed=16, categories=20)
     eng = BatchedEngine(ds, db_tile=128, query_batch=16, bin_top=128,
-                        scan_impl="v2", scan_layout="lane")
+                        scan_impl="v2", scan_layout="lane", device="cpu")
     assert eng.db.num_tiles == 128
     calls = []
     orig = tbatched.binned_stream_topk
@@ -162,10 +162,10 @@ def test_scan_impl_takes_the_jax_names_and_v3_forces_axis1():
                            ("pallas_v3", "v3"), ("xla_packed", "packed"),
                            ("xla", "stream"), ("auto", "v3")):
         eng = BatchedEngine(ds, query_batch=8, scan_impl=jax_name,
-                            scan_layout="lane")
+                            scan_layout="lane", device="cpu")
         assert eng.scan_impl == port
         assert eng.scan_layout == ("axis1" if port == "v3" else "lane")
         assert eng.db.db_tile == (8192 if port in ("v1", "v2") else 16384)
     for bad in dict(scan_impl="xla_deferred"), dict(scan_layout="rows"):
         with pytest.raises(ValueError):
-            BatchedEngine(ds, **bad)
+            BatchedEngine(ds, **bad, device="cpu")

@@ -26,7 +26,7 @@ def ds():
 @pytest.fixture(scope="module")
 def indices(ds):
     return (jpart.PartitionedIndex.build(ds, db_tile=DB_TILE),
-            tpart.PartitionedIndex.build(ds, db_tile=DB_TILE))
+            tpart.PartitionedIndex.build(ds, db_tile=DB_TILE, device="cpu"))
 
 
 def _queries(case, ds):
@@ -105,7 +105,7 @@ def _assert_views_equal(tv, jv, exact_norms=False):
 @pytest.mark.parametrize("scan_store", ["fp32", "bf16"])
 def test_build_and_lazy_time_view_match_jax(ds, scan_store):
     jidx = jpart.PartitionedIndex.build(ds, db_tile=DB_TILE, scan_store=scan_store)
-    tidx = tpart.PartitionedIndex.build(ds, db_tile=DB_TILE, scan_store=scan_store)
+    tidx = tpart.PartitionedIndex.build(ds, db_tile=DB_TILE, scan_store=scan_store, device="cpu")
     _assert_views_equal(tidx.cat_view, jidx.cat_view)
     np.testing.assert_array_equal(tidx.T_sorted, jidx.T_sorted)
     # padding rows: +inf attributes, oid n, zero vectors
@@ -124,15 +124,15 @@ def test_from_arrays_carries_the_jax_index(ds, scan_store):
     jidx = jpart.PartitionedIndex.build(ds, db_tile=DB_TILE, scan_store=scan_store,
                                         lazy_time=False)
     tidx = tpart.PartitionedIndex.from_arrays(
-        jidx.cat_view, jidx.T_sorted, time_view=jidx._time_view)
+        jidx.cat_view, jidx.T_sorted, time_view=jidx._time_view, device="cpu")
     _assert_views_equal(tidx.cat_view, jidx.cat_view, exact_norms=True)
     _assert_views_equal(tidx.time_view, jidx._time_view, exact_norms=True)
     np.testing.assert_array_equal(tidx.T_sorted, jidx.T_sorted)
     # no time view given: built lazily from ds, or refused without it
-    lazy = tpart.PartitionedIndex.from_arrays(jidx.cat_view, jidx.T_sorted, ds=ds)
+    lazy = tpart.PartitionedIndex.from_arrays(jidx.cat_view, jidx.T_sorted, ds=ds, device="cpu")
     assert lazy._scan_store == scan_store
     _assert_views_equal(lazy.time_view, jidx._time_view)
-    bare = tpart.PartitionedIndex.from_arrays(jidx.cat_view, jidx.T_sorted)
+    bare = tpart.PartitionedIndex.from_arrays(jidx.cat_view, jidx.T_sorted, device="cpu")
     with pytest.raises(ValueError):
         bare.time_view
 
@@ -147,26 +147,26 @@ def test_from_arrays_rejects_malformed_views(ds, indices):
            dict(C_key=np.asarray(jv.C_key)[:-1])]
     for change in bad:
         with pytest.raises(ValueError):
-            tpart.SortedView.from_arrays(dataclasses.replace(jv, **change))
+            tpart.SortedView.from_arrays(dataclasses.replace(jv, **change), device="cpu")
     with pytest.raises(ValueError):
-        tpart.PartitionedIndex.from_arrays(jv, indices[0].T_sorted[:-1])
+        tpart.PartitionedIndex.from_arrays(jv, indices[0].T_sorted[:-1], device="cpu")
 
 
 def test_perm_cache_is_written_then_read(ds, tmp_path, monkeypatch):
     cache = tmp_path / "perm.npz"
     monkeypatch.setenv("HVQ_PERM_CACHE", str(cache))
-    first = tpart.PartitionedIndex.build(ds, db_tile=DB_TILE)
+    first = tpart.PartitionedIndex.build(ds, db_tile=DB_TILE, device="cpu")
     assert cache.exists()
 
     def no_sort(*a, **k):
         raise AssertionError("the cached permutation was not used")
 
     monkeypatch.setattr(tpart.np, "lexsort", no_sort)
-    second = tpart.PartitionedIndex.build(ds, db_tile=DB_TILE)
+    second = tpart.PartitionedIndex.build(ds, db_tile=DB_TILE, device="cpu")
     _assert_views_equal(second.cat_view, first.cat_view, exact_norms=True)
     np.testing.assert_array_equal(second.T_sorted, first.T_sorted)
 
 
 def test_row_multiple_is_not_ported(ds):
     with pytest.raises(NotImplementedError):
-        tpart.PartitionedIndex.build(ds, db_tile=DB_TILE, row_multiple=512)
+        tpart.PartitionedIndex.build(ds, db_tile=DB_TILE, row_multiple=512, device="cpu")

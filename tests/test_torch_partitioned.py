@@ -70,9 +70,9 @@ def _pair(ds, **kw):
     jeng = JaxPartitionedEngine(ds, **kw)
     ji = jeng.index
     idx = PartitionedIndex.from_arrays(ji.cat_view, ji.T_sorted,
-                                       time_view=ji._time_view, ds=ds)
+                                       time_view=ji._time_view, ds=ds, device="cpu")
     kw.pop("db_tile", None)
-    eng = PartitionedEngine(ds, index=idx, **kw)
+    eng = PartitionedEngine(ds, index=idx, **kw, device="cpu")
     assert (eng.bin_top, eng.kprime, eng.route_buckets, eng.certified) == (
         jeng.bin_top, jeng.kprime, jeng.route_buckets, jeng.certified)
     return jeng, eng
@@ -134,19 +134,19 @@ def test_batched_level2_gate_reads_l2_min_w(monkeypatch):
     jdb = jeng.db
     db = DeviceDB.from_arrays(np.asarray(jdb.Vp), np.asarray(jdb.C),
                               np.asarray(jdb.T), np.asarray(jdb.d_norms),
-                              jdb.n, jdb.db_tile)
+                              jdb.n, jdb.db_tile, device="cpu")
     calls = []
     orig = tbatched.binned_stream_topk
     monkeypatch.setattr(tbatched, "binned_stream_topk",
                         lambda *a, **k: calls.append(1) or orig(*a, **k))
     eng = BatchedEngine(ds, query_batch=32, bin_top=32, device_db=db,
-                        l2_min_w=16385)
+                        l2_min_w=16385, device="cpu")
     ids, dists = _exact(ds, qs, eng)
     assert not calls
     jids, jdists = jeng.search(qs)
     assert_results_match(ds, qs, ids, dists, jids, jdists)
     np.testing.assert_allclose(dists, jdists, rtol=RTOL_FP32)
-    BatchedEngine(ds, query_batch=32, bin_top=32, device_db=db).search(qs)
+    BatchedEngine(ds, query_batch=32, bin_top=32, device_db=db, device="cpu").search(qs)
     assert calls                       # the default gate does take it
 
 
@@ -358,26 +358,26 @@ def _small():
 
 def case_oracle_small():
     ds, qs = _small()
-    _exact(ds, qs, PartitionedEngine(ds, db_tile=128, query_batch=32))
+    _exact(ds, qs, PartitionedEngine(ds, db_tile=128, query_batch=32, device="cpu"))
 
 
 def _case_type(t):
     def run():
         ds, _ = _small()
         qs = generate_queries(16, seed=200 + t, categories=20, types=(t,))
-        _exact(ds, qs, PartitionedEngine(ds, db_tile=128, query_batch=32))
+        _exact(ds, qs, PartitionedEngine(ds, db_tile=128, query_batch=32, device="cpu"))
     return run
 
 
 def case_sample_proportion():
     ds, qs = _small()
-    _exact(ds, qs, PartitionedEngine(ds, db_tile=128, query_batch=32), 0.41)
+    _exact(ds, qs, PartitionedEngine(ds, db_tile=128, query_batch=32, device="cpu"), 0.41)
 
 
 def case_full_scan_route():
     ds = generate_dataset(131072, seed=60, categories=10)
     qs = generate_queries(16, seed=61, categories=10)
-    eng = PartitionedEngine(ds, db_tile=2048, query_batch=16)
+    eng = PartitionedEngine(ds, db_tile=2048, query_batch=16, device="cpu")
     assert eng.bin_top is not None
     _exact(ds, qs, eng)
     assert eng.last_route["full"] and eng.last_route["full_batches"]
@@ -388,14 +388,14 @@ def case_empty_predicate():
     qs = QuerySet(qtype=np.array([1], np.int32), v=np.array([0.123456], np.float32),
                   l=np.array([-1], np.float32), r=np.array([-1], np.float32),
                   V=np.zeros((1, 100), np.float32))
-    ids, _ = _exact(ds, qs, PartitionedEngine(ds, db_tile=128, query_batch=8))
+    ids, _ = _exact(ds, qs, PartitionedEngine(ds, db_tile=128, query_batch=8, device="cpu"))
     assert set(ids[0]) == set(range(500, 600))
 
 
 def case_bucket_boundaries():
     ds = generate_dataset(20000, seed=70, categories=5)   # ~4000 rows/cat
     eng = PartitionedEngine(ds, db_tile=1024, query_batch=64,
-                            route_buckets=(4096, 8192), routed_batch=64)
+                            route_buckets=(4096, 8192), routed_batch=64, device="cpu")
     qs = generate_queries(48, seed=71, categories=5, types=(1, 3))
     _exact(ds, qs, eng)
     assert len(eng.last_route["routed_groups"]) >= 2
@@ -406,7 +406,7 @@ def case_narrow_type2_time_view():
     qs = _type2(16, 73, -2, 2, width=0.01)                # ~0.2% selectivity
     eng = PartitionedEngine(ds, db_tile=1024, query_batch=16,
                             route_buckets=(2048,), routed_batch=16,
-                            time_view_min_queries=1)
+                            time_view_min_queries=1, device="cpu")
     view_id, start, end = eng.index.query_ranges(qs.qtype, qs.v, qs.l, qs.r)
     assert (view_id == 1).all() and ((end - start) <= 2048).all()
     _exact(ds, qs, eng)
@@ -418,14 +418,14 @@ def case_time_view_economics_gate():
     ds = generate_dataset(30000, seed=72, categories=8)
     qs = _type2(8, 74, -2, 2, width=0.01)
     eng = PartitionedEngine(ds, db_tile=1024, query_batch=16,
-                            route_buckets=(2048,), routed_batch=16)
+                            route_buckets=(2048,), routed_batch=16, device="cpu")
     _exact(ds, qs, eng)
     assert eng.index._time_view is None                    # no 2nd copy
     assert eng.last_route["routed_time"] == 0 and eng.last_route["full"] == 8
     # the byte budget holds it off too
     eng = PartitionedEngine(ds, index=eng.index, query_batch=16,
                             route_buckets=(2048,), routed_batch=16,
-                            time_view_min_queries=1, time_view_max_bytes=1000)
+                            time_view_min_queries=1, time_view_max_bytes=1000, device="cpu")
     _exact(ds, qs, eng)
     assert eng.index._time_view is None
 
@@ -434,7 +434,7 @@ def case_time_view_is_lazy():
     ds = generate_dataset(5000, seed=80, categories=10)
     eng = PartitionedEngine(ds, db_tile=512, query_batch=32,
                             route_buckets=(256,), routed_batch=32,
-                            time_view_min_queries=1)
+                            time_view_min_queries=1, device="cpu")
     assert eng.index._time_view is None
     _exact(ds, generate_queries(16, seed=81, categories=10, types=(0, 1, 3)), eng)
     assert eng.index._time_view is None
@@ -448,13 +448,13 @@ def case_windowed_wide_type2():
     ds = generate_dataset(131072, seed=90, categories=10)
     qs = _type2(256, 91, 0.5, 2.5)                         # upper-half starts
     eng = PartitionedEngine(ds, db_tile=2048, query_batch=128,
-                            time_view_min_queries=1)
+                            time_view_min_queries=1, device="cpu")
     assert eng.bin_top is not None
     _exact(ds, qs, eng)
     assert eng.index._time_view is not None
     # with caps ≤ 4096 rows most of these ranges are wide: windows run
     eng = PartitionedEngine(ds, index=eng.index, query_batch=128,
-                            route_buckets=(4096,))
+                            route_buckets=(4096,), device="cpu")
     _exact(ds, qs, eng)
     assert sum(eng.last_route["windowed_batches"].values()) >= 1
 
@@ -463,7 +463,7 @@ def case_mixed_workload():
     ds = generate_dataset(131072, seed=92, categories=30)
     qs = generate_queries(512, seed=93, categories=30)
     _exact(ds, qs, PartitionedEngine(ds, db_tile=2048, query_batch=128,
-                                     time_view_min_queries=8))
+                                     time_view_min_queries=8, device="cpu"))
 
 
 def case_sample_proportion_on_every_route():
@@ -472,7 +472,7 @@ def case_sample_proportion_on_every_route():
     qs = _concat(generate_queries(256, seed=95, categories=30),
                  _type2(256, 96, 0.5, 2.5), _type2(8, 97, -2, 2, width=0.01))
     eng = PartitionedEngine(ds, db_tile=2048, query_batch=128,
-                            route_buckets=(4096,), time_view_min_queries=1)
+                            route_buckets=(4096,), time_view_min_queries=1, device="cpu")
     _exact(ds, qs, eng, 0.41)
     route = eng.last_route
     assert route["full"] and route["windowed"]
@@ -506,7 +506,7 @@ def test_each_window_holds_its_batch_candidates():
     ds = generate_dataset(131072, seed=90, categories=10)
     qs = _type2(384, 91, 0.5, 2.5)
     eng = PartitionedEngine(ds, db_tile=2048, query_batch=128,
-                            route_buckets=(4096,), time_view_min_queries=1)
+                            route_buckets=(4096,), time_view_min_queries=1, device="cpu")
     _exact(ds, qs, eng)
     view_id, start, end = eng.index.query_ranges(qs.qtype, qs.v, qs.l, qs.r)
     Dt = eng.index.time_view.db_tile
@@ -531,7 +531,7 @@ def test_forced_ladder_escalates_and_holds_the_sample_limit(monkeypatch):
     qs = _concat(generate_queries(96, seed=22, categories=20),
                  _type2(64, 23, 1.0, 2.5))
     eng = PartitionedEngine(ds, db_tile=2048, query_batch=32, bin_top=1,
-                            route_buckets=(2048,), time_view_min_queries=1)
+                            route_buckets=(2048,), time_view_min_queries=1, device="cpu")
     calls = []
     orig = kernels.packed_scan_v3
     monkeypatch.setattr(kernels, "packed_scan_v3",
@@ -550,14 +550,14 @@ def test_forced_ladder_escalates_and_holds_the_sample_limit(monkeypatch):
 def test_unported_options_raise(monkeypatch):
     ds = generate_dataset(600, seed=5, categories=4)
     with pytest.raises(NotImplementedError):
-        PartitionedEngine(ds, repair_bins=1)
+        PartitionedEngine(ds, repair_bins=1, device="cpu")
     with pytest.raises(NotImplementedError):
-        PartitionedEngine(ds, dtype=torch.bfloat16)
+        PartitionedEngine(ds, dtype=torch.bfloat16, device="cpu")
     with pytest.raises(ValueError):
-        PartitionedEngine(ds, scan_impl="pallas")
+        PartitionedEngine(ds, scan_impl="pallas", device="cpu")
     monkeypatch.setenv("HVQ_CERT_TERMS", "1")
     with pytest.raises(NotImplementedError):
-        PartitionedEngine(ds)
+        PartitionedEngine(ds, device="cpu")
 
 
 @pytest.mark.parametrize("scan_impl,scan_store", [("auto", "fp32"),
@@ -565,7 +565,7 @@ def test_unported_options_raise(monkeypatch):
                                                   ("xla_packed", "fp32")])
 def test_defaults_follow_the_jax_engine(scan_impl, scan_store):
     ds = generate_dataset(40000, seed=36, categories=30)
-    eng = PartitionedEngine(ds, scan_impl=scan_impl, scan_store=scan_store)
+    eng = PartitionedEngine(ds, scan_impl=scan_impl, scan_store=scan_store, device="cpu")
     v3 = scan_impl == "auto"
     assert eng.scan_impl == ("v3" if v3 else "packed")
     assert eng.index.cat_view.db_tile == (16384 if v3 else 8192)
@@ -580,7 +580,7 @@ def test_return_dists_false_and_phases():
     from hvq_tpu_torch.utils.timing import PhaseTimer
 
     ds, qs = _small()
-    eng = PartitionedEngine(ds, db_tile=128, query_batch=32)
+    eng = PartitionedEngine(ds, db_tile=128, query_batch=32, device="cpu")
     ids, dists = eng.search(qs)
     timer = PhaseTimer()
     ids2, none = eng.search(qs, return_dists=False, phases=timer)
