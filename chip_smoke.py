@@ -12,17 +12,23 @@ Phases, in order; any failure exits non-zero with a traceback:
 3. kernel vs plain: each kernel against its plain PyTorch version on the
    card — K1 over both scan planes, bin depths R (its tensor-core body for
    R ≤ 8, its CUDA-core body above), tiles, windows, mixed predicates and
-   a sample limit; K3 and K2 over R and tiles with a sample limit and a
-   permuted ``oid``; K4 over R and tiles, a permuted ``oid`` and a
-   predicate that empties whole bins (padding ids);
-3b. certificate error: K1's kept distances on both planes, at unit and
+   a sample limit; K3 and K2 over R (the tensor-core body for R ≤ 8, the
+   CUDA-core body above) and tiles with a sample limit, a permuted ``oid``,
+   B = 1000 queries (a ragged last query block) at 8-bin tiles, and
+   data in lanes 112–127 (the product's 8th k-step); K4 over R
+   and tiles, a permuted ``oid`` and a predicate that empties whole bins
+   (padding ids);
+3b. certificate error: the kept distances of K1 (both planes) and of K3
+   and K2 (their main-path shape, Dt = 8192, R = 4), at unit and
    adversarial norms (the scale-4096 layout of the certificate stress
    test), against their true values in fp64, as a share of the
    certificate's slack ``rel_mm·(‖q‖² + max‖d‖²)`` (must stay ≤ 0.5);
-3c. determinism: K1 five times on the same inputs over both planes, R of
-   both bodies, 8 main-path tiles and 8-bin tiles, with CTAs enough for
-   two an SM; the outputs must be bit-identical (every kernel is also rerun and held bit
-   for bit at its main-path shape in phases 4–7);
+3c. determinism: K1, K3 and K2 five times on the same inputs: K1 over
+   both planes, R of both bodies, 8 main-path tiles and 8-bin tiles, with
+   CTAs enough for two an SM; K3 and K2 at B = 1024 over 8 tiles of 8192
+   rows at R 1–4 and 8, 8-bin tiles at R 3 and one R = 32 case on the
+   CUDA-core body; the outputs must be bit-identical (every kernel is also
+   rerun and held bit for bit at its main-path shape in phases 4–7);
 4. main paths at D=10⁶ rows: one dataset, its 64-query oracle answer and
    the streaming exact path's answer for all 10⁴ mixed queries, computed
    once; then the batched engine with K1 (``scan_impl="v3"``, fp32 plane),
@@ -41,11 +47,12 @@ Phases, in order; any failure exits non-zero with a traceback:
    queries, and every query within 0.002 of the batched K1 engine.
 
 Each path runs with the launch counts set to 0 just before it and read
-just after; K1's launches are also counted per body, and every K1 launch
-of a main path must run the tensor-core body. K1 is timed at its three
-main-path shapes (D=10⁶ fp32, D=10⁷ bf16, the partitioned window) beside
-its bound, its plain version and ``torch.matmul`` of the same bf16
-product alone (product only: not the same function, and the port never
+just after; the launches of K1, K3 and K2 are also counted per body, and
+every launch of theirs on a main path must run the tensor-core body. K1
+is timed at its three main-path shapes (D=10⁶ fp32, D=10⁷ bf16, the
+partitioned window), K3 and K2 at theirs (D=10⁶, Dt=8192, R=4), each
+beside its bound, its plain version and ``torch.matmul`` of the same bf16
+passes alone (product only: not the same function, and the port never
 calls it). The last three lines are the card (``nvidia-smi`` name, power
 limit), a JSON object describing each kernel with its time, bound and
 launches, and ``{"ok": true, "device": {...}}``.
@@ -96,10 +103,15 @@ KERNELS = {
 }
 # The kernel each of the engine's kernel scan_impls launches.
 IMPL_KERNEL = {"v3": "packed_scan_v3", "v1": "packed_scan", "v2": "packed_scan_v2"}
+# The bf16 passes of q·d each lane kernel forms on the fp32 plane, as the
+# TPU kernels do: K3 and K4 ask for HIGHEST (K3 for HIGH, which Mosaic
+# maps to HIGHEST), the 6-pass bf16 emulation of fp32; K2 the 3-pass split.
+LANE_PASSES = {"packed_scan": 6, "packed_scan_v2": 3, "bin_scan": 6}
 # H100 SXM data-sheet peaks at 700 W (dense): bf16 tensor cores, fp32 on
-# the CUDA cores, HBM3.
+# the CUDA cores, int8 tensor cores, HBM3.
 PEAK_BF16 = 989e12
 PEAK_FP32 = 67e12
+PEAK_INT8 = 1979e12
 PEAK_BYTES = 3.35e12
 
 
@@ -215,21 +227,25 @@ def k1_vs_plain() -> float:
     return worst
 
 
-def certificate_error() -> dict:
-    """Phase 3b: how much of the certificate's slack K1's arithmetic uses.
+def certificate_error(name: str = "packed_scan_v3", Dt: int = 16384, R: int = 3,
+                      planes=("fp32", "bf16")) -> dict:
+    """Phase 3b: how much of the certificate's slack a packed scan's
+    arithmetic uses.
 
     For each plane, at unit scale and at the adversarial norms of the
     certificate stress test (data and queries × 64 and × 4096, 64 rows on a
-    near-exact sphere around query 0), every finite distance K1 keeps is
+    near-exact sphere around query 0), every finite distance the kernel
+    keeps (K1 at Dt = 16384, R = 3; K3 and K2 at their Dt = 8192, R = 4) is
     held against its true value in fp64 from the fp32 data:
 
         max (|key_d − true_d| − 2⁻¹⁶·true_d) / (rel_mm·(‖q‖² + max‖d‖²))
 
     (2⁻¹⁶·true_d is the key's own truncation; rel_mm is _CERT_REL_MM on the
-    fp32 plane, _CERT_REL_MM_BF16 on the bf16 plane). The constants assume
-    a worst-order fp32 sum with about 2× margin; the ratio must stay ≤ 0.5.
+    fp32 plane, _CERT_REL_MM_BF16 on the bf16 plane, the slack the engines
+    certify with). The constants assume a worst-order fp32 sum with about
+    2× margin; the ratio must stay ≤ 0.5.
     """
-    n_pad, B, R, Dt = 8 * 16384, 256, 3, 16384
+    n_pad, B = 8 * 16384, 256
     rng = np.random.default_rng(33)
     V0 = rng.uniform(-6, 6, (n_pad, 128)).astype(np.float32)
     V0[:, 100:] = 0.0
@@ -239,9 +255,9 @@ def certificate_error() -> dict:
     dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
     zeros = np.zeros(B)
     out = {}
-    for plane, rel_mm in (("fp32", batched._CERT_REL_MM),
-                          ("bf16", batched._CERT_REL_MM_BF16)):
-        worst = []
+    rel = {"fp32": batched._CERT_REL_MM, "bf16": batched._CERT_REL_MM_BF16}
+    for plane in planes:
+        rel_mm, worst = rel[plane], []
         for scale in (1.0, 64.0, 4096.0):
             V, qV = V0 * np.float32(scale), q0 * np.float32(scale)
             radius = 0.1 * scale * (1.0 + 1e-7 * rng.standard_normal((64, 1)))
@@ -251,7 +267,7 @@ def certificate_error() -> dict:
             dn = (Vf * Vf).sum(1)
             args = scan_inputs(Vs, torch.zeros(n_pad, device=DEV), torch.zeros(n_pad, device=DEV),
                                dn, qV, zeros, zeros, zeros, zeros)
-            d, p = kernels.packed_scan_v3(*args, n_pad, db_tile=Dt, bin_top=R)
+            d, p = getattr(kernels, name)(*args, n_pad, db_tile=Dt, bin_top=R)
             fin = torch.isfinite(d)
             qi = torch.nonzero(fin)[:, 0]
             rows = p[fin].long()
@@ -264,13 +280,13 @@ def certificate_error() -> dict:
             slack = rel_mm * (qn[qi] + float(dn.max()))
             err = (d[fin].double() - true).abs() - 2.0 ** -16 * true
             ratio = float((err / slack).max())
-            log(f"  certificate error [{plane} scale={scale:g}]: ratio={ratio:.4g} "
+            log(f"  {name} certificate error [{plane} scale={scale:g}]: ratio={ratio:.4g} "
                 f"max|Δ|={float((d[fin].double() - true).abs().max()):.4g} "
                 f"entries={int(fin.sum())}")
             worst.append(ratio)
             del Vf, Vs, dn, args, d, p, fin, qi, rows, q64, V64, true, err
         out[plane] = max(worst)
-        assert out[plane] <= 0.5, (plane, worst)
+        assert out[plane] <= 0.5, (name, plane, worst)
     torch.cuda.empty_cache()
     return out
 
@@ -282,26 +298,36 @@ def same_bits(a, b) -> bool:
                for x, y in zip(a, b))
 
 
-def k1_determinism(runs: int = 5) -> int:
-    """Phase 3c: K1 ``runs`` times on the same inputs, bit for bit, over
-    both planes and both bodies: B=1024 over 8 tiles of 16384 rows (the
-    fp32 shape at R ≤ 3 where a race in the ring once showed: 512 CTAs,
-    two an SM), and 8-bin tiles. Returns the cases run."""
-    _, Vf, C, T, dn, qV, (qtype, v, l, r) = small_problem(7, n_pad=8 * 16384, B=1024)
+def determinism(name: str = "packed_scan_v3", runs: int = 5) -> int:
+    """Phase 3c: a kernel ``runs`` times on the same inputs, bit for bit,
+    over both bodies and B=1024. K1 over both planes: 8 tiles of 16384 rows
+    (the fp32 shape at R ≤ 3 where a race in the ring once showed: 512
+    CTAs, two an SM) and 8-bin tiles. K3 and K2: 8 tiles of 8192 rows at
+    R 1–4 and 8 (the lane paths and their rung 1), 8-bin tiles, and R = 32
+    on the CUDA-core body. Returns the cases run."""
+    if name == "packed_scan_v3":
+        n_pad, sn, planes = 8 * 16384, 120000, ("fp32", "bf16")
+        shapes = ((16384, 1), (16384, 2), (16384, 3), (16384, 6), (16384, 8),
+                  (1024, 3), (1024, 24))
+    else:
+        n_pad, sn, planes = 8 * 8192, 60000, ("fp32",)
+        shapes = ((8192, 1), (8192, 2), (8192, 3), (8192, 4), (8192, 8), (1024, 3),
+                  (8192, 32))
+    _, Vf, C, T, dn, qV, (qtype, v, l, r) = small_problem(7, n_pad=n_pad, B=1024)
+    fn = getattr(kernels, name)
     cases = 0
-    for plane in ("fp32", "bf16"):
+    for plane in planes:
         Vs = Vf if plane == "fp32" else Vf.to(torch.bfloat16)
         args = scan_inputs(Vs, C, T, dn, qV, qtype, v, l, r)
-        for db_tile, R in ((16384, 1), (16384, 2), (16384, 3), (16384, 6), (16384, 8),
-                           (1024, 3), (1024, 24)):
+        for db_tile, R in shapes:
             kw = dict(db_tile=db_tile, bin_top=R)
-            first = kernels.packed_scan_v3(*args, 120000, **kw)
+            first = fn(*args, sn, **kw)
             for _ in range(runs - 1):
-                again = kernels.packed_scan_v3(*args, 120000, **kw)
+                again = fn(*args, sn, **kw)
                 if not same_bits(first, again):
-                    raise AssertionError(f"K1 is not deterministic [{plane} {kw}]")
+                    raise AssertionError(f"{name} is not deterministic [{plane} {kw}]")
             cases += 1
-    log(f"  K1 determinism: {cases} cases × {runs} runs bit-identical")
+    log(f"  {name} determinism: {cases} cases × {runs} runs bit-identical")
     return cases
 
 
@@ -322,6 +348,17 @@ def lane_vs_plain() -> dict:
         worst[name] = max(worst[name], agree["max_abs_err"])
         return got
 
+    # B = 1000: query blocks of 64 with a ragged last one; 8-bin tiles, so a
+    # CTA's 32 bins span four. Then data in lanes 112-127 of the plane and
+    # of two queries (the product's 8th k-step; the vectors have 100 lanes).
+    _, Vf2, C2, T2, dn2, qV2, (qtype2, v2, l2, r2) = small_problem(8, B=1000)
+    args_1000 = scan_inputs(Vf2, C2, T2, dn2, qV2, qtype2, v2, l2, r2)
+    high = rng.uniform(-3, 3, (n_pad, 16)).astype(np.float32)
+    V_high = Vf.clone()
+    V_high[:, 112:] = torch.from_numpy(high).to(DEV)
+    q_high = qV.copy()
+    q_high[[3, 70], 112:] = 2.5
+    args_high = scan_inputs(V_high, C, T, (V_high * V_high).sum(1), q_high, qtype, v, l, r)
     for name in ("packed_scan", "packed_scan_v2"):
         for db_tile in (1024, 8192):
             for R in (1, 2, 3, 4, 8, 32, 128):
@@ -332,6 +369,10 @@ def lane_vs_plain() -> dict:
         kept = p[torch.isfinite(d)].long()
         oid = args_perm[4]
         assert bool((oid[kept] < 30000).all()) and bool((kept >= 30000).any()), name
+        for R in (3, 8):
+            case(name, args_1000, 60000, 1024, R, " B=1000")
+        for R in (1, 4):
+            case(name, args_high, 60000, 1024, R, " lanes 112-127 in use")
     for db_tile in (128, 2048, 8192):
         for R in (1, 2, 3, 8):
             case("bin_scan", args, 60000, db_tile, R)
@@ -375,28 +416,84 @@ def k1_bound(Vs, B, W, rows) -> dict:
     return bound(rows, B, W, 2 if bf16 else 4, 1 if bf16 else 3, PEAK_BF16)
 
 
-def product_only_ms(Vs, qV, row0: int, rows: int, reps: int = 3) -> float:
-    """``torch.matmul`` of K1's bf16 product alone over rows [row0, row0 +
-    rows): one pass on the bf16 plane, the three split passes on the fp32
-    plane, in chunks of 2²⁰ rows (bf16 outputs, not kept). Product only: a
-    yardstick, not the same function, and the port never calls it."""
+def lane_bound(name: str, rows: int, B: int, W: int) -> dict:
+    """The bound of a lane kernel on the fp32 plane: its bf16 passes
+    (``LANE_PASSES``) at the bf16 tensor-core peak; for the six-pass K3 and
+    K4 also ``bound_fp32_simt_ms``, one IEEE fp32 pass on the CUDA cores
+    (67 TFLOP/s), the figure their bound was given before their arithmetic
+    was read as the TPU kernels'."""
+    out = bound(rows, B, W, 4, LANE_PASSES[name], PEAK_BF16)
+    if LANE_PASSES[name] == 6:
+        out["bound_fp32_simt_ms"] = bound(rows, B, W, 4, 1, PEAK_FP32)["bound_ms"]
+    return out
+
+
+def probe_bounds() -> dict:
+    """The bounds of the three TPU measurement scripts in ``experiments/``
+    that reach ``pl.pallas_call`` (no path of the system runs them), from
+    the shapes in those scripts, by the rule of :func:`bound`. Their arrays
+    carry data in all 128 lanes, so the operations count 128:
+
+    * ``pallas_probe.py:32`` ``_trivial``: x·2 on a (256, 128) fp32 array;
+    * ``int8_probe.py:83``: (256, 128) · (128, 16384) over 61 tiles, each
+      product's min over 128-column bins written as (61, 256, 128) 4-byte
+      values; bf16 inputs at the bf16 peak, int8 at the int8 peak;
+    * ``v3_anatomy.py:189``: K1's stages at B = 1024 over 61 tiles of 16384
+      rows; the whole kernel at R = 2, three bf16 passes on the fp32 plane
+      and one on the bf16 plane."""
+    def pick(ops_ms, bytes_ms):
+        return dict(bound_ms=max(ops_ms, bytes_ms),
+                    bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+
+    n = 256 * 128
+    out = {"pallas_probe:32 _trivial": pick(n / PEAK_FP32 * 1e3, 2 * n * 4 / PEAK_BYTES * 1e3)}
+    B, Dt, nt = 256, 16384, 61
+    for dtype, size, peak in (("bf16", 2, PEAK_BF16), ("int8", 1, PEAK_INT8)):
+        nbytes = (B + nt * Dt) * 128 * size + nt * B * 128 * 4
+        out[f"int8_probe:83 {dtype}"] = pick(2 * B * 128 * Dt * nt / peak * 1e3,
+                                             nbytes / PEAK_BYTES * 1e3)
+    B, rows, R = 1024, nt * Dt, 2
+    for plane, size, passes in (("fp32", 4, 3), ("bf16", 2, 1)):
+        nbytes = rows * (128 * size + 16) + B * (2 * 128 * 2 + 24) + B * nt * R * 128 * 4
+        out[f"v3_anatomy:189 {plane}"] = pick(passes * 2 * B * rows * 128 / PEAK_BF16 * 1e3,
+                                              nbytes / PEAK_BYTES * 1e3)
+    return out
+
+
+# (query part, plane part) of each bf16 pass, parts 0 = hi, 1 = next, 2 =
+# last: the kernels' chains (csrc/scan_wgmma.cuh).
+CHAINS = {1: ((0, 0),), 3: ((0, 0), (0, 1), (1, 0)),
+          6: ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0))}
+
+
+def bf16_parts(x, n: int) -> list:
+    """The n-way bf16 split of an fp32 tensor: bf16_rn(x), then the bf16
+    rounding of each remainder."""
+    parts, rest = [], x
+    for _ in range(n):
+        parts.append(rest.to(torch.bfloat16))
+        rest = rest - parts[-1].float()
+    return parts
+
+
+def product_only_ms(Vs, qV, row0: int, rows: int, passes: int, reps: int = 3) -> float:
+    """``torch.matmul`` of a kernel's bf16 passes alone over rows [row0,
+    row0 + rows): one pass on the bf16 plane (K1); on the fp32 plane the 3
+    split passes (K1, K2) or the 6 passes of the three-way split (K3), in
+    chunks of 2²⁰ rows (bf16 outputs, not kept). Product only: a yardstick,
+    not the same function, and the port never calls it."""
     step = 1 << 20
-    qhi = qV.to(torch.bfloat16)
+    n = {1: 1, 3: 2, 6: 3}[passes]
+    qp = bf16_parts(qV, n)
     if Vs.dtype == torch.bfloat16:
         chunks = [(Vs[r:r + step],) for r in range(row0, row0 + rows, step)]
-        one = lambda c: torch.matmul(qhi, c[0].t())
     else:
-        qlo = (qV - qhi.float()).to(torch.bfloat16)
-        chunks = []
-        for r in range(row0, row0 + rows, step):
-            hi = Vs[r:r + step].to(torch.bfloat16)
-            chunks.append((hi, (Vs[r:r + step] - hi.float()).to(torch.bfloat16)))
-        one = lambda c: (torch.matmul(qhi, c[0].t()), torch.matmul(qhi, c[1].t()),
-                         torch.matmul(qlo, c[0].t()))
+        chunks = [bf16_parts(Vs[r:r + step], n) for r in range(row0, row0 + rows, step)]
 
     def run():
         for c in chunks:
-            one(c)
+            for i, j in CHAINS[passes]:
+                torch.matmul(qp[i], c[j].t())
     ms = time_ms(run, reps)
     del chunks
     return ms
@@ -475,10 +572,11 @@ def run_engine(tag, eng, ds, qs, ref, seed) -> dict:
     W = db.n_pad * eng.bin_top // 128
     if name == "packed_scan_v3":
         bnd = k1_bound(plane, B, W, db.n_pad)
-        bnd["product_only_matmul_ms"] = product_only_ms(plane, qV, 0, db.n_pad)
-    else:                      # K3: IEEE fp32 FMAs; K2: three bf16 passes
-        bnd = (bound(db.n_pad, B, W, 4, 1, PEAK_FP32) if name == "packed_scan"
-               else bound(db.n_pad, B, W, 4, 3, PEAK_BF16))
+        passes = 1 if plane.dtype == torch.bfloat16 else 3
+    else:
+        bnd = lane_bound(name, db.n_pad, B, W)
+        passes = LANE_PASSES[name]
+    bnd["product_only_matmul_ms"] = product_only_ms(plane, qV, 0, db.n_pad, passes)
     log(f"[{tag}] {name} {ms:.3f} ms/call, plain {plain_ms:.3f} ms/call, {bnd} "
         f"(B={B}, Dt={db.db_tile}, R={eng.bin_top}, n_pad={db.n_pad})")
 
@@ -491,11 +589,16 @@ def run_engine(tag, eng, ds, qs, ref, seed) -> dict:
     wall = time.perf_counter() - t0
     launches = dict(kernels.launches)
     bodies = dict(kernels.k1_body_launches)
+    lane_bodies = {k: dict(v) for k, v in kernels.lane_body_launches.items()}
     ladder = dict(eng.last_ladder)
     log(f"[{tag}] search {qs.m} queries: {wall:.3f} s = {qs.m / wall:.1f} QPS; "
-        f"launches {launches}; K1 bodies {bodies}; ladder {ladder}")
-    # every K1 launch of the path (R ≤ 8, rung 1 at 2R ≤ 8) is tensor-core
+        f"launches {launches}; K1 bodies {bodies}; K3/K2 bodies {lane_bodies}; "
+        f"ladder {ladder}")
+    # every K1, K3 and K2 launch of the path (R ≤ 8, rung 1 at 2R ≤ 8) is
+    # tensor-core
     assert bodies == {"wgmma": launches["packed_scan_v3"], "simt": 0}, bodies
+    for k, v in lane_bodies.items():
+        assert v == {"wgmma": launches[k], "simt": 0}, lane_bodies
     want_launches = dict.fromkeys(kernels.launches, 0)
     want_launches[name] += -(-qs.m // B)
     # rung 1 is the packed scan in scan_layout: K1 for axis1, K2 for lane
@@ -526,8 +629,8 @@ def run_engine(tag, eng, ds, qs, ref, seed) -> dict:
         f"max|Δ|={full.max_abs_diff} beyond={full.num_exceeding}")
     assert full.ok, full
     return dict(name=name, qps=qs.m / wall, ms=ms, plain_ms=plain_ms, **bnd,
-                launches=launches, bodies=bodies, max_abs_err=agree["max_abs_err"],
-                suspects=ladder["suspects"])
+                launches=launches, bodies=bodies, lane_bodies=lane_bodies,
+                max_abs_err=agree["max_abs_err"], suspects=ladder["suspects"])
 
 
 def k4_path(tag, db, qs) -> dict:
@@ -550,7 +653,7 @@ def k4_path(tag, db, qs) -> dict:
     assert agree["ok"] and launches == 1, (agree, launches)
     ms = time_ms(lambda: kernels.bin_scan(*args, **kw), 10)
     plain_ms = time_ms(lambda: kernels.plain["bin_scan"](*args, **kw), 10)
-    bnd = bound(db.n_pad, B, db.n_pad * R // 128, 4, 1, PEAK_FP32)
+    bnd = lane_bound("bin_scan", db.n_pad, B, db.n_pad * R // 128)
     log(f"[{tag}] bin_scan {ms:.3f} ms/call, plain {plain_ms:.3f} ms/call, {bnd} "
         f"(B={B}, Dt={Dt}, R={R}, n_pad={db.n_pad})")
     return dict(ms=ms, plain_ms=plain_ms, **bnd, launches=launches,
@@ -624,7 +727,7 @@ def window_vs_plain(tag, eng, qs) -> dict:
     plain_ms = time_ms(lambda: kernels.plain["packed_scan_v3"](*args, **kw), 3)
     rows = ntw * tv.db_tile
     bnd = k1_bound(tv.scan_V, B, rows * eng.bin_top // 128, rows)
-    bnd["product_only_matmul_ms"] = product_only_ms(tv.scan_V, qV, row0, rows)
+    bnd["product_only_matmul_ms"] = product_only_ms(tv.scan_V, qV, row0, rows, 1)
     log(f"[{tag}] K1 window {ms:.3f} ms/call, plain {plain_ms:.3f} ms/call, {bnd}")
     return dict(ms=ms, plain_ms=plain_ms, **bnd, max_abs_err=agree["max_abs_err"])
 
@@ -656,6 +759,7 @@ def path_partitioned(reused, seed: int = workload.PARTITIONED_SEED) -> dict:
     wall = time.perf_counter() - t0
     launches, route = dict(kernels.launches), dict(eng.last_route)
     bodies = dict(kernels.k1_body_launches)
+    lane_bodies = {k: dict(v) for k, v in kernels.lane_body_launches.items()}
     log(f"[{tag}] search {qs.m} queries: {wall:.3f} s = {qs.m / wall:.1f} QPS; "
         f"launches {launches}; K1 bodies {bodies}; route {json.dumps(route)}")
     windowed = sum(route["windowed_batches"].values())
@@ -692,8 +796,9 @@ def path_partitioned(reused, seed: int = workload.PARTITIONED_SEED) -> dict:
         f"({time.perf_counter() - t0:.1f} s): {full.status} "
         f"max|Δ|={full.max_abs_diff} beyond={full.num_exceeding}")
     assert full.ok, full
-    return dict(qps=qs.m / wall, launches=launches, bodies=bodies, route=route,
-                window=win, max_abs_err=win["max_abs_err"])
+    return dict(qps=qs.m / wall, launches=launches, bodies=bodies,
+                lane_bodies=lane_bodies, route=route, window=win,
+                max_abs_err=win["max_abs_err"])
 
 
 def main() -> int:
@@ -702,9 +807,13 @@ def main() -> int:
     worst = {"packed_scan_v3": k1_vs_plain()}
     worst.update(lane_vs_plain())
     log(f"kernel vs plain: all cases ok, max_abs_err {worst}")
-    cert = certificate_error()
+    log(f"bounds of the TPU probe scripts (not ported): {json.dumps(probe_bounds())}")
+    cert = {"packed_scan_v3": certificate_error()}
+    for name in ("packed_scan", "packed_scan_v2"):
+        cert[name] = certificate_error(name, 8192, 4, planes=("fp32",))
     log(f"certificate error, share of the slack used (≤ 0.5): {cert}")
-    determinism = k1_determinism()
+    deterministic = {name: determinism(name)
+                     for name in ("packed_scan_v3", "packed_scan", "packed_scan_v2")}
     r6 = paths_d1e6()
     torch.cuda.empty_cache()
     r7, reused = path_d1e7()
@@ -729,6 +838,15 @@ def main() -> int:
                      ms=r["ms"], plain_ms=r["plain_ms"], qps=r["qps"])
         # no single PyTorch call computes a masked, bin-wise packed-key top-R
         e.update(bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None)
+        if "bound_fp32_simt_ms" in r:
+            e.update(bound_fp32_simt_ms=r["bound_fp32_simt_ms"])
+        if name in kernels.lane_body_launches:
+            # ms / plain_ms / qps / bound_ms: the D=10⁶ lane path (Dt=8192, R=4)
+            e.update(bodies={b: sum(p["lane_bodies"][name][b] for p in paths)
+                             for b in ("wgmma", "simt")},
+                     certificate_error_ratio=cert[name],
+                     deterministic_cases=deterministic[name],
+                     product_only_matmul_ms=r["product_only_matmul_ms"])
         if name == "packed_scan_v3":
             # ms / plain_ms / qps / bound_ms: the D=10⁶ fp32 batched path
             e.update(max_abs_err=max(e["max_abs_err"], r7["max_abs_err"],
@@ -741,8 +859,8 @@ def main() -> int:
                      product_only_matmul_ms=r["product_only_matmul_ms"],
                      bodies={b: sum(p["bodies"][b] for p in paths)
                              for b in ("wgmma", "simt")},
-                     certificate_error_ratio=cert,
-                     deterministic_cases=determinism,
+                     certificate_error_ratio=cert[name],
+                     deterministic_cases=deterministic[name],
                      shapes={
                          "d1e6_fp32": {k: r6["v3"][k] for k in timing},
                          "d1e7_bf16": {k: r7[k] for k in timing},

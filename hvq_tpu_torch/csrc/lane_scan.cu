@@ -14,13 +14,13 @@
 // payload. With the mask
 //   ok = oid < sn ∧ (¬ac ∨ C == v) ∧ (¬at ∨ l ≤ T ≤ r)
 // K3 and K2 form K1's packed key (packed_scan_v3.cu),
-//   dist = max(‖q‖² + ‖d‖² − 2·q·d, 0),  key = bitcast(dist) & ~0x7F | s,
-// K3 with q·d as IEEE fp32 FMAs in lane order (the TPU kernel maps HIGH to
-// HIGHEST), K2 as the 3-pass bf16 split (q_hi·d_hi + q_hi·d_lo) + q_lo·d_hi
-// with one fp32 accumulator per pass: each bf16·bf16 product is exact in
-// fp32, so only the order of the sum inside a pass differs from the TPU
-// kernel. A bin keeps its R smallest keys ascending, padded with
-// 0x7F800000 (+inf, payload 0), and the output is decoded:
+//   dist = max((‖d‖² − 2·q·d) + ‖q‖², 0),  key = bitcast(dist) & ~0x7F | s,
+// with q·d in the TPU kernels' own arithmetic: K3 asks for Precision.HIGH,
+// which Mosaic runs as HIGHEST, the 6-pass bf16 emulation of fp32
+// (pallas_scan.py:568-573, :769-772); K2 is the 3-pass bf16 split
+// qhi·Vhi + qhi·Vlo + qlo·Vhi (:775-786). A bin keeps its R smallest keys
+// ascending, padded with 0x7F800000 (+inf, payload 0), and the output is
+// decoded:
 //   dist[q, tile·R·bins + j·bins + b] = key & ~0x7F   (as fp32)
 //   pos [q, same column]              = tile·Dt + b·128 + (key & 0x7F)
 // K4 is unpacked: score = ‖d‖² − 2·q·d in fp32 FMAs, with no ‖q‖² and no
@@ -29,31 +29,35 @@
 // occurrence), padded with (+inf, lane 0) as argmin over an all-+inf bin
 // gives, and reports (score, oid[row]).
 //
-// What bounds it on this card: what bounds K1 (see packed_scan_v3.cu). At
-// the main-path batch (B = 1024) the scan does ~2000 FLOP per database
-// byte, so HBM bytes are not the limit; time follows the FMA work (K2 does
-// three times K3's) and the warps resident per SM that hide each slice's
-// unoverlapped load and two barriers.
+// What bounds them on this card: at the main-path batch (B = 1024) the
+// product, not HBM: six bf16 passes for K3 and K4, three for K2, on the
+// tensor cores (2·B·n·100 FLOP a pass).
 //
-// Design: K1's structure, with the row address of the lane layout. Global
-// bin g = tile·bins + b is rows g·128 + s whatever the tile, so a CTA owns
-// (query block of QB, 64 consecutive global bins), which may span tiles:
-// a small tile (K4's default Dt = 2048 has 16 bins) leaves no thread idle.
-// It streams the 128 slices of its bins; slice s is row g·128 + s of each
-// bin, 64 rows 64 KB apart, each still read as whole 512-byte rows, staged
-// transposed in shared memory. C/T/‖d‖²/oid become one scattered 4-byte load per row (K1 reads
-// them contiguously). Each thread holds a 4×4 register tile of (query,
-// bin) dot products and a running top-R per (query, bin); keys are
-// distinct through the lane, or for K4 ordered by (score, lane) with the
-// lanes arriving in increasing order, so the running top-R equals R min
-// (argmin) rounds bit for bit, padding included. Small R keeps the lists in
-// registers (R ≤ 4 for packed keys, R ≤ 2 for K4's 64-bit keys); larger R
-// keeps them in shared memory (K4: a 32-bit ordered score and an 8-bit
-// lane, 5 bytes an entry) and the launcher halves QB until they fit. K2
-// stages each query and database value as one 32-bit word holding its bf16
-// hi and lo halves, so its shared memory equals K3's; its three
-// accumulators cost registers, so it runs one CTA per SM. Tensor cores
-// (mma/wgmma bf16 for K2) and cp.async/TMA staging are later work.
+// Two bodies, chosen by mode and R (dispatch on shape, not a fallback):
+//
+// * wgmma (K3 and K2 at R ≤ 8: the lane paths' R = 4 and the lane rung 1 at
+//   2R = 8): scan_wgmma.cuh's body, K1's, in the Lane layout. A CTA owns
+//   (128 queries in two warpgroups × 32 consecutive global bins g0 …),
+//   which may span tiles; slice s is row g·128 + s of each bin, one box of
+//   a 3-D tensor map over the plane, (128 lanes, 128 slices, nbins), loaded
+//   at (0, s, g0); C, T, ‖d‖² and oid come by cp.async on the slice's
+//   mbarrier. Both warpgroups split the fp32 slice in shared memory into 3
+//   (K3) or 2 (K2) swizzled bf16 parts, each its query block once; K3
+//   chains its six products smallest first,
+//   ql·Vh + qm·Vm + qh·Vl + qm·Vh + qh·Vm + qh·Vh, K2 its three, into one
+//   fp32 accumulator; the epilogue and the register top-R are K1's.
+// * simt (K3 and K2 at R > 8, K4 at every R): the CUDA-core structure of
+//   the first port. A CTA owns (query block of QB, 64 consecutive global
+//   bins) and streams the 128 slices, each staged transposed in shared
+//   memory; each thread holds a 4×4 register tile of (query, bin) dot
+//   products in IEEE fp32 FMAs (K2: three accumulators of the bf16 split,
+//   hi/lo packed in one staged word) and a running top-R per (query, bin);
+//   keys are distinct through the lane, or for K4 ordered by (score, lane)
+//   with the lanes arriving in increasing order, so the running top-R
+//   equals R min (argmin) rounds bit for bit, padding included. K4 keeps
+//   R ≤ 2 in registers (64-bit keys); any other list lives in shared
+//   memory (K4: a 32-bit ordered score and an 8-bit lane, 5 bytes an
+//   entry) and the launcher halves QB until the lists fit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -61,16 +65,15 @@
 
 #include <type_traits>
 
+#include "scan_wgmma.cuh"
+
 namespace {
 
-constexpr int kSlices = 128;        // rows per bin = payload range
-constexpr int kDim = 128;           // padded vector width
+// ----------------------------------------------------------------- simt body
 constexpr int kNB = 64;             // bins per CTA
 constexpr int kNBP = kNB + 4;       // padded smem row of the staged slice
 constexpr int kTQ = 4;              // queries per thread
 constexpr int kTB = 4;              // bins per thread
-constexpr int kInfKey = 0x7F800000;
-constexpr int kKeyMask = ~0x7F;
 constexpr int kMaxQB = 64;
 // Dynamic shared memory a CTA aims to stay under, so two CTAs share an SM.
 constexpr size_t kSmemTarget = 100 * 1024;
@@ -84,16 +87,13 @@ constexpr int kK4 = 2;   // unpacked (score, lane), reports oid
 
 template <int MODE> struct KeyOf { using T = int; };
 template <> struct KeyOf<kK4> { using T = unsigned long long; };
-// Largest R whose top-R lives in registers.
-template <int MODE> constexpr int kMaxRegR = MODE == kK4 ? 2 : 4;
-
 // K4's empty entry: +inf (ordered 0xFF800000) at lane 0.
 constexpr unsigned long long kInfPair = 0xFF800000ull << 32;
 template <int MODE> __device__ __forceinline__ typename KeyOf<MODE>::T inf_key() {
   if constexpr (MODE == kK4) return kInfPair; else return kInfKey;
 }
 
-struct Args {
+struct LaneArgs {
   const float* V;
   const float* C;
   const float* T;
@@ -171,7 +171,7 @@ struct PairLists {          // K4: ordered score and lane, 5 bytes an entry
 
 // Write entry j (round j) of global bin g for output row q.
 template <int MODE>
-__device__ __forceinline__ void emit(const Args& a, int q, int g, int j,
+__device__ __forceinline__ void emit(const LaneArgs& a, int q, int g, int j,
                                      typename KeyOf<MODE>::T key) {
   const int tile = g / a.bins;
   const long long o = (long long)q * a.nt * a.R * a.bins +
@@ -191,7 +191,7 @@ __device__ __forceinline__ void emit(const Args& a, int q, int g, int j,
 // Register budget for two CTAs per SM; K2's three accumulators get one.
 template <int MODE, int RR>
 __global__ void __launch_bounds__(256, MODE == kK2 ? 1 : 2)
-lane_scan_kernel(Args a) {
+lane_scan_kernel(LaneArgs a) {
   using Key = typename KeyOf<MODE>::T;
   using Lists = typename std::conditional<MODE == kK4, PairLists, IntLists>::type;
   extern __shared__ float smem[];
@@ -384,8 +384,8 @@ lane_scan_kernel(Args a) {
 }
 
 template <int MODE, int RR>
-cudaError_t launch_r(const Args& a0, cudaStream_t stream) {
-  Args a = a0;
+cudaError_t launch_r(const LaneArgs& a0, cudaStream_t stream) {
+  LaneArgs a = a0;
   int QB = kMaxQB;
   while (RR == 0 && QB > kTQ && smem_bytes(MODE, QB, a.R, true) > kSmemTarget) QB /= 2;
   a.QB = QB;
@@ -404,26 +404,41 @@ cudaError_t launch_r(const Args& a0, cudaStream_t stream) {
 }
 
 template <int MODE>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
-  static_assert(kMaxRegR<MODE> == 2 || kMaxRegR<MODE> == 4, "cases below");
-  if (a.R == 1) return launch_r<MODE, 1>(a, stream);
-  if (a.R == 2) return launch_r<MODE, 2>(a, stream);
-  if constexpr (kMaxRegR<MODE> == 4) {
-    if (a.R == 3) return launch_r<MODE, 3>(a, stream);
-    if (a.R == 4) return launch_r<MODE, 4>(a, stream);
+cudaError_t launch(const LaneArgs& a, cudaStream_t stream) {
+  // K4 holds R ≤ 2 in registers; K3 and K2 come here only for R > 8
+  if constexpr (MODE == kK4) {
+    if (a.R == 1) return launch_r<MODE, 1>(a, stream);
+    if (a.R == 2) return launch_r<MODE, 2>(a, stream);
   }
   return launch_r<MODE, 0>(a, stream);
 }
 
+// ------------------------------------------------------------ wgmma body
+
+// Two consumer warpgroups share each slice and its split, 32 bins a CTA at
+// every R, three slices in flight: measured fastest of the shapes tried
+// (PERF.md).
+template <int kPasses>
+int launch_lane_wgmma(const Args& a, cudaStream_t stream) {
+  constexpr int kNB4 = 32, kWG = 2, kStages = 3;
+  return launch_wgmma_r<Lane, kPasses, kNB4, kWG, kStages>(a, stream);
+}
+
 }  // namespace
+
+// Which body a scan of `mode` at bin depth R runs: 0 = wgmma, 1 = simt.
+extern "C" int hvq_lane_scan_body(int mode, int R) {
+  return mode != kK4 && R <= kMaxWgmmaR ? 0 : 1;
+}
 
 // Plain C entry point for ctypes. mode 0 = K3, 1 = K2, 2 = K4. Pointers are
 // device pointers: V (n_pad, 128) fp32; C, T, dn (n_pad,) fp32, oid
 // (n_pad,) int32; q (B, 128) fp32, qn (B,) fp32 query norms (unused by K4),
 // ac/at (B,) int32 flags, v/l/r (B,) fp32. out_d / out_i are
 // (B, nt·bin_top·db_tile/128), nt = n_pad / db_tile: K3/K2 write dist and
-// row positions, K4 scores and oid. Returns the cudaError_t of the launch
-// (0 on success).
+// row positions, K4 scores and oid. V and q are 16-byte aligned (TMA rows,
+// float4 query loads). Returns 0 on success, the cudaError_t of a failed
+// launch, or −CUresult if the plane's tensor map cannot be encoded.
 extern "C" int hvq_lane_scan(
     int mode, const float* V, const float* C, const float* T,
     const float* dn, const int* oid, const float* q, const float* qn,
@@ -434,10 +449,19 @@ extern "C" int hvq_lane_scan(
       bin_top > kSlices || n_pad < db_tile || n_pad % db_tile || mode < 0 ||
       mode > 2)
     return (int)cudaErrorInvalidValue;
-  Args a{V, C, T, dn, oid, q, qn, ac, v, at, l, r, out_d, out_i,
-         sn, B, db_tile / kSlices, n_pad / kSlices, bin_top, n_pad / db_tile,
-         0, 0, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hvq_lane_scan_body(mode, bin_top) == 0) {
+    if (reinterpret_cast<uintptr_t>(V) % 16 || reinterpret_cast<uintptr_t>(q) % 16)
+      return (int)cudaErrorMisalignedAddress;
+    // the whole plane as one window: tiles [0, nt)
+    const Args w{V, C, T, dn, oid, q, qn, ac, v, at, l, r, out_d, out_i,
+                 sn, B, db_tile, db_tile / kSlices, bin_top, 0, n_pad / db_tile,
+                 n_pad / kSlices, 0, 0, 0};
+    return mode == kK3 ? launch_lane_wgmma<6>(w, s) : launch_lane_wgmma<3>(w, s);
+  }
+  LaneArgs a{V, C, T, dn, oid, q, qn, ac, v, at, l, r, out_d, out_i,
+             sn, B, db_tile / kSlices, n_pad / kSlices, bin_top, n_pad / db_tile,
+             0, 0, 0};
   switch (mode) {
     case kK3: return (int)launch<kK3>(a, s);
     case kK2: return (int)launch<kK2>(a, s);

@@ -1,0 +1,699 @@
+// The tensor-core body of the packed scans on Hopper (sm_90a), shared by K1
+// (packed_scan_v3.cu) and K3/K2 (lane_scan.cu): the mbarrier, TMA, cp.async
+// and wgmma wrappers, the 128B-swizzle operand layout, the bf16 splits, the
+// tensor-map encode and one kernel template.
+//
+// What the body computes, for bin depths R ≤ 8 (kMaxWgmmaR):
+//   d   = (‖d‖² − 2·q·d) + ‖q‖²  (one fma and one add, the TPU kernels' order)
+//   key = max(bits(d), 0) & ~0x7F | s,  +inf (0x7F800000) unless
+//         oid < sn ∧ (¬ac ∨ C == v) ∧ (¬at ∨ l ≤ T ≤ r)
+// and each bin keeps its R smallest keys; s, the payload, is the slice. The
+// integer max maps −0.0 and below to +0.0, whose key would sort first.
+// What varies, as template arguments:
+//
+// * the layout L: where slice s of a CTA's bins lies (the slice's TMA
+//   coordinates and the attribute addresses) and how a kept key decodes.
+//   Axis1 (K1): bin b of a tile is rows tile·Dt + s·bins + b, so a slice of
+//   NB bins is NB contiguous rows, one 2-D box. Lane (K3, K2): global bin g
+//   is the 128 contiguous rows g·128 + s, so a slice is row g·128 + s of NB
+//   consecutive bins, 64 KB apart: one box of a 3-D tensor map over the
+//   plane, (128 lanes, 128 slices, nbins);
+// * the bf16 passes of q·d on the tensor cores, the TPU kernels' own
+//   arithmetic, all chained into one fp32 accumulator: 1 on a bf16 plane
+//   (K1); 3 on an fp32 plane, qhi·Vhi + qhi·Vlo + qlo·Vhi (K1's fp32 plane,
+//   and K2's body, pallas_scan.py:775-786); 6, the bf16×6 emulation of fp32
+//   that Mosaic runs for HIGHEST (K3), smallest terms first:
+//   ql·Vh + qm·Vm + qh·Vl + qm·Vh + qh·Vm + qh·Vh. An fp32 value splits as
+//   hi = bf16_rn(x), mid = bf16_rn(x − hi), lo = bf16_rn(x − hi − mid)
+//   (hi and lo = bf16_rn(x − hi) for three passes); every remainder is exact;
+// * NB bins a CTA, kWG consumer warpgroups of 64 queries (the wgmma M) that
+//   share each slice (on an fp32 plane its split as well), and kStages
+//   slices in flight.
+//
+// Structure. One producer warp keeps a ring of slices in flight: the plane's
+// slice by TMA, C, T, ‖d‖² and oid by cp.async, both completing on the
+// slice's mbarrier (cp.async.mbarrier.arrive.noinc; 1-D TMA boxes for the
+// attributes raced with two CTAs an SM). On an fp32 plane the consumers
+// split each slice in shared memory into swizzled bf16 parts; the query
+// block is split once. Then m64nNBk16 wgmma chains into the accumulator
+// fragment in registers, and the epilogue on it: the fragment's (query,
+// bin) mapping is the same for every slice, so each thread keeps the running
+// top-R of its own fragment elements in registers across all 128 slices,
+// updated branch-free by a min/max pass (a masked key is +inf and passes
+// through, as does any key not below the list's R-th). Keys are distinct
+// through the payload, so the running top-R equals the TPU kernels' R min
+// rounds bit for bit. The launch order puts the query blocks of one slice
+// range next to each other, so a slice is read from HBM once and from L2
+// after.
+//
+// What bounds it on this card: 2·B·n·100 FLOP a pass (the vectors have 100
+// lanes) at the main-path batch B = 1024 is ~800 FLOP per byte of the bf16
+// plane, so the tensor cores, not HBM, set the bound. Every (query, row)
+// pair also costs CUDA-core instructions (distance, clamp, mask, key, the
+// top-R insert); measured on K1, that epilogue and not the product sets the
+// time (PERF.md).
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kSlices = 128;        // rows per bin = payload range
+constexpr int kDim = 128;           // padded vector width
+constexpr int kInfKey = 0x7F800000;
+constexpr int kKeyMask = ~0x7F;
+constexpr int kMaxWgmmaR = 8;       // largest R on the tensor-core body
+constexpr int kM = 64;              // queries per warpgroup (wgmma M)
+constexpr int kWGThreads = 128;     // one consumer warpgroup
+
+// One scan call. A tile is db_tile = bins·128 rows; the scan covers tiles
+// [t0, t0 + ntw); nbins: the 128-row bins of the whole plane; nbb, nqb: the
+// launch's bin and query blocks; QB: a CUDA-core CTA's query block.
+struct Args {
+  const void* V;
+  const float* C;
+  const float* T;
+  const float* dn;
+  const int* oid;
+  const float* q;
+  const float* qn;
+  const int* ac;
+  const float* v;
+  const int* at;
+  const float* l;
+  const float* r;
+  float* out_d;
+  int* out_p;
+  int sn, B, db_tile, bins, R, t0, ntw, nbins, nbb, nqb, QB;
+};
+
+// Shared-memory plan of one CTA, in bytes from a 1024-aligned base. Every
+// operand that wgmma reads (query parts, bf16 slice parts) starts
+// 1024-aligned: the 128B swizzle repeats every 8 rows of 128 bytes.
+template <int kPasses, int NB, int kWG, int kStages_>
+struct Plan {
+  static_assert(kPasses == 1 || kPasses == 3 || kPasses == 6, "1, 3 or 6 passes");
+  static constexpr int kStages = kStages_;                   // slices in flight
+  static constexpr bool kBf16 = kPasses == 1;                // bf16 plane
+  static constexpr int kParts = kPasses == 1 ? 1 : kPasses == 3 ? 2 : 3;
+  static constexpr int kQ = kM * kDim * 2;                   // one bf16 query block
+  static constexpr int kV = NB * kDim * 2;                   // one bf16 slice part
+  static constexpr int kPlane = NB * kDim * (kBf16 ? 2 : 4); // one slice as stored
+  static constexpr int kAttr = 4 * NB * 4;                   // C, T, dn, oid
+  static constexpr int kStage = ((kPlane + kAttr + 1023) / 1024) * 1024;
+  static constexpr int q = 0;                                // [kParts][kWG] blocks
+  static constexpr int split = q + kParts * kWG * kQ;        // [kParts] slice parts
+  static constexpr int ring = split + (kBf16 ? 0 : kParts * kV);
+  static constexpr int bars = ring + kStages * kStage;
+  static constexpr int bytes = bars + 2 * kStages * 8;
+  static constexpr int smem = bytes + 1024;                  // alignment slack
+  static constexpr uint32_t tx = kPlane;                     // TMA bytes a slice
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map,
+                                       int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_3d(uint32_t dst, const CUtensorMap* map,
+                                       int c0, int c1, int c2, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+         "r"(bar)
+      : "memory");
+}
+
+// 4-byte asynchronous copy global → shared; cp_async_arrive makes the
+// barrier see one arrival once every copy this thread issued has landed.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" :: "r"(dst), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" :: "r"(bar)
+               : "memory");
+}
+
+// Barrier of one consumer warpgroup (ids 1, 2, ...; id 0 is __syncthreads).
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, %1;" :: "r"(1 + wg), "n"(kWGThreads) : "memory");
+}
+
+// Barrier of all kWG consumer warpgroups (id kWG + 1, after theirs).
+template <int kWG>
+__device__ __forceinline__ void consumers_sync(int wg) {
+  if constexpr (kWG == 1)
+    wg_sync(wg);
+  else
+    asm volatile("bar.sync %0, %1;" :: "n"(kWG + 1), "n"(kWG * kWGThreads) : "memory");
+}
+
+// Generic-proxy shared-memory writes become visible to wgmma (async proxy).
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// Byte offset of element (row, k) of a K-major bf16 operand of `rows` rows
+// × 128 k in the 128B-swizzled layout: two 64-k column blocks of rows ×
+// 128 B; inside a block the 16-byte chunk index is XORed with row % 8,
+// what TMA's CU_TENSOR_MAP_SWIZZLE_128B writes.
+__device__ __forceinline__ int swz(int rows, int row, int k) {
+  return (k >> 6) * rows * 128 + row * 128 + ((((k & 63) >> 3) ^ (row & 7)) << 4)
+         + (k & 7) * 2;
+}
+
+// wgmma shared-memory descriptor of a K-major operand in the 128B swizzle:
+// start >> 4, leading offset 1 (unused for this layout), stride 1024 B
+// between 8-row groups, layout type 1 = 128B swizzle.
+__device__ __forceinline__ uint64_t desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16)
+         | ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N / 2]) {
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+#define K1_D16(c) c(d[0]), c(d[1]), c(d[2]), c(d[3]), c(d[4]), c(d[5]), \
+    c(d[6]), c(d[7]), c(d[8]), c(d[9]), c(d[10]), c(d[11]), c(d[12]),   \
+    c(d[13]), c(d[14]), c(d[15])
+#define K1_D32(c) K1_D16(c), c(d[16]), c(d[17]), c(d[18]), c(d[19]),    \
+    c(d[20]), c(d[21]), c(d[22]), c(d[23]), c(d[24]), c(d[25]), c(d[26]), \
+    c(d[27]), c(d[28]), c(d[29]), c(d[30]), c(d[31])
+#define K1_N64                                                            \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                            \
+  "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "                 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "    \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, " \
+  "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+#define K1_N32                                                            \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"                            \
+  "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "                 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "    \
+  "%15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+
+// D = A·Bᵀ (kInit: scale-d 0) or D += A·Bᵀ, m64nNk16, bf16 operands,
+// fp32 accumulators. Both forms name D read-write, so the accumulators keep
+// their registers across a chain of asynchronous products.
+template <int N, bool kInit>
+__device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t da, uint64_t db) {
+  if constexpr (N == 64) {
+    asm volatile(K1_N64 : K1_D32("+f") : "l"(da), "l"(db), "r"(kInit ? 0 : 1));
+  } else {
+    static_assert(N == 32, "m64n32 or m64n64");
+    asm volatile(K1_N32 : K1_D16("+f") : "l"(da), "l"(db), "r"(kInit ? 0 : 1));
+  }
+}
+
+// The k-steps of one 128-lane product: A (64 × 128) and B (NB × 128), both
+// K-major and swizzled; step k moves 32 bytes inside a 64-k block.
+template <int NB, bool kFirst>
+__device__ __forceinline__ void product(float (&d)[NB / 2], uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int k = 0; k < kDim / 16; ++k) {
+    const uint64_t da = desc(a + (k >> 2) * kM * 128 + (k & 3) * 32);
+    const uint64_t db = desc(b + (k >> 2) * NB * 128 + (k & 3) * 32);
+    if (kFirst && k == 0)
+      wgmma<NB, true>(d, da, db);
+    else
+      wgmma<NB, false>(d, da, db);
+  }
+}
+
+// The kParts-way bf16 split of 8 values: part 0 = bf16_rn(x), each next part
+// the bf16 rounding of what the parts before it leave (an exact fp32
+// remainder); 16 bytes a part, element i at the lower address of its pair.
+template <int kParts>
+__device__ __forceinline__ void split8(const float (&x)[8], uint4 (&part)[kParts]) {
+  uint32_t w[kParts][4];
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+#pragma unroll
+    for (int j = 0; j < kParts; ++j) w[j][p] = 0;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float rest = x[2 * p + e];
+#pragma unroll
+      for (int j = 0; j < kParts; ++j) {
+        const __nv_bfloat16 b = __float2bfloat16_rn(rest);
+        w[j][p] |= (uint32_t)__bfloat16_as_ushort(b) << (16 * e);
+        rest = rest - __bfloat162float(b);
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kParts; ++j) part[j] = make_uint4(w[j][0], w[j][1], w[j][2], w[j][3]);
+}
+
+typedef CUresult (*EncodeTiled)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// library needs no link against libcuda.
+EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// Axis1 (K1): a CTA owns a query block and bins [b0, b0 + NB) of window tile
+// `tile`; slice s is the NB contiguous rows tile_row + s·bins + b0 + c.
+struct Axis1 {
+  int qblk, tile, b0, nb;
+  long long tile_row;
+
+  __device__ Axis1(const Args& a, int NB) {
+    qblk = blockIdx.x % a.nqb;            // query blocks of a slice adjacent
+    const int rest = blockIdx.x / a.nqb;
+    tile = rest / a.nbb;                  // window-local tile
+    b0 = (rest % a.nbb) * NB;
+    nb = min(NB, a.bins - b0);
+    tile_row = (long long)(a.t0 + tile) * a.db_tile;
+  }
+  static constexpr int kColStride = 1;    // rows from one column to the next
+  // The plane row of column 0 of slice s.
+  __device__ long long row(const Args& a, int s) const {
+    return tile_row + (long long)s * a.bins + b0;
+  }
+  // Slice s by TMA: one 128-lane fp32 box, or on the bf16 plane two 64-lane
+  // boxes in the 128B swizzle, which wgmma reads as they land.
+  template <bool kBf16>
+  __device__ void load(uint32_t dst, const CUtensorMap* map, const Args& a, int s,
+                       int NB, uint32_t bar) const {
+    const int r = (int)row(a, s);
+    tma_2d(dst, map, 0, r, bar);
+    if (kBf16) tma_2d(dst + NB * 128, map, 64, r, bar);
+  }
+  // Column c's entry 0 in an output row: tile·R·bins + b0 + c (entry j is
+  // j·bins further).
+  __device__ long long col(const Args& a, int c) const {
+    return (long long)tile * a.R * a.bins + b0 + c;
+  }
+  // A kept key of column c at output offset o: its distance and its row.
+  __device__ void emit(const Args& a, long long o, int c, int key) const {
+    a.out_d[o] = __int_as_float(key & kKeyMask);
+    a.out_p[o] = (int)(tile_row + (long long)(key & 0x7F) * a.bins + b0 + c);
+  }
+  static int bin_blocks(const Args& a, int NB) { return (a.bins + NB - 1) / NB; }
+  static long long blocks(const Args& a) { return (long long)a.nqb * a.nbb * a.ntw; }
+  // The plane (nbins·128, 128): bf16 as two 64-lane boxes in the 128B
+  // swizzle (wgmma's B layout); fp32 as one unswizzled 128-lane box.
+  static CUresult encode(EncodeTiled enc, CUtensorMap* map, const Args& a, int NB,
+                         bool bf16) {
+    const cuuint64_t dim[2] = {(cuuint64_t)kDim, (cuuint64_t)a.nbins * kSlices};
+    const cuuint64_t stride[1] = {(cuuint64_t)kDim * (bf16 ? 2 : 4)};
+    const cuuint32_t box[2] = {(cuuint32_t)(bf16 ? 64 : kDim), (cuuint32_t)NB};
+    const cuuint32_t es[2] = {1, 1};
+    return enc(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+               2, const_cast<void*>(a.V), dim, stride, box, es,
+               CU_TENSOR_MAP_INTERLEAVE_NONE,
+               bf16 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  }
+};
+
+// Lane (K3, K2): global bin g = tile·bins + b is the 128 contiguous rows
+// g·128 + s whatever the tile, so a CTA owns a query block and NB
+// consecutive global bins g0 + c, which may span tiles; slice s is row
+// g·128 + s of each.
+struct Lane {
+  int qblk, g0, nb;
+
+  __device__ Lane(const Args& a, int NB) {
+    qblk = blockIdx.x % a.nqb;            // query blocks of a slice adjacent
+    g0 = (blockIdx.x / a.nqb) * NB;
+    nb = min(NB, a.nbins - g0);
+  }
+  static constexpr int kColStride = kSlices;
+  __device__ long long row(const Args&, int s) const {
+    return (long long)g0 * kSlices + s;
+  }
+  // Slice s by TMA: one box {128 lanes, 1 slice, NB bins} of the 3-D map at
+  // (0, s, g0); bins past nbins come back zero-filled (masked by c < nb).
+  template <bool kBf16>
+  __device__ void load(uint32_t dst, const CUtensorMap* map, const Args&, int s, int,
+                       uint32_t bar) const {
+    static_assert(!kBf16, "the lane kernels read the fp32 plane");
+    tma_3d(dst, map, 0, s, g0, bar);
+  }
+  // Column c's entry 0 in an output row: tile·R·bins + b for global bin
+  // g = g0 + c = tile·bins + b. The tile is taken per column: a CTA's bins
+  // may span tiles.
+  __device__ long long col(const Args& a, int c) const {
+    const int g = g0 + c, tile = g / a.bins;
+    return (long long)tile * a.R * a.bins + (g - tile * a.bins);
+  }
+  // A kept key of column c at output offset o: its distance and its row
+  // g·128 + lane.
+  __device__ void emit(const Args& a, long long o, int c, int key) const {
+    a.out_d[o] = __int_as_float(key & kKeyMask);
+    a.out_p[o] = (int)((long long)(g0 + c) * kSlices + (key & 0x7F));
+  }
+  static int bin_blocks(const Args& a, int NB) { return (a.nbins + NB - 1) / NB; }
+  static long long blocks(const Args& a) { return (long long)a.nqb * a.nbb; }
+  // The fp32 plane as (128 lanes, 128 slices, nbins): strides 512 B and
+  // 64 KB, box {128, 1, NB}, unswizzled (split in the kernel).
+  static CUresult encode(EncodeTiled enc, CUtensorMap* map, const Args& a, int NB,
+                         bool) {
+    const cuuint64_t dim[3] = {(cuuint64_t)kDim, (cuuint64_t)kSlices,
+                               (cuuint64_t)a.nbins};
+    const cuuint64_t stride[2] = {(cuuint64_t)kDim * 4, (cuuint64_t)kSlices * kDim * 4};
+    const cuuint32_t box[3] = {(cuuint32_t)kDim, 1, (cuuint32_t)NB};
+    const cuuint32_t es[3] = {1, 1, 1};
+    return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(a.V), dim,
+               stride, box, es, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  }
+};
+
+// kWG consumer warpgroups (64 queries each) share the ring, so a slice is
+// read once for 64·kWG queries; RR is the list length held in registers
+// (R rounded up to 1, 2, 3, 4, 6, 8).
+template <class L, int kPasses, int NB, int kWG, int RR, int kStages>
+__global__ void __launch_bounds__(kWG * kWGThreads + 32, kWG == 1 ? 2 : 1)
+scan_wgmma(__grid_constant__ const CUtensorMap plane, Args a) {
+  using P = Plan<kPasses, NB, kWG, kStages>;
+  constexpr bool kBf16 = P::kBf16;
+  constexpr int kConsumers = kWG * kWGThreads;
+  // Round the dynamic base up to 1024 by offsetting the shared array itself,
+  // so every access below stays a shared-memory access (LDS, not LD).
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t base = smem_u32(sm);
+  const uint32_t full = base + P::bars, empty = full + 8 * kStages;
+
+  const int tid = threadIdx.x;
+  const L lay(a, NB);
+
+  if (tid == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(full + 8 * i, 33);
+      mbar_init(empty + 8 * i, kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    // Producer warp: lane 0 brings each slice's plane rows by TMA; every
+    // lane copies a share of its C, T, ‖d‖² and oid with cp.async, whose
+    // completion arrives on the same barrier. A slice is full after the
+    // plane's bytes and 33 arrivals; the warp never waits on a load.
+    const int lane = tid - kConsumers;
+    for (int s = 0; s < kSlices; ++s) {
+      const int st = s % kStages;
+      mbar_wait(empty + 8 * st, ((s / kStages) & 1) ^ 1);
+      const uint32_t bar = full + 8 * st;
+      const uint32_t dst = base + P::ring + st * P::kStage;
+      const long long row = lay.row(a, s);
+      for (int c = lane; c < lay.nb; c += 32) {
+        const long long rc = row + (long long)c * L::kColStride;
+        cp_async4(dst + P::kPlane + 4 * c, a.C + rc);
+        cp_async4(dst + P::kPlane + 4 * (NB + c), a.T + rc);
+        cp_async4(dst + P::kPlane + 4 * (2 * NB + c), a.dn + rc);
+        cp_async4(dst + P::kPlane + 4 * (3 * NB + c), a.oid + rc);
+      }
+      cp_async_arrive(bar);
+      if (lane == 0) {
+        mbar_expect_tx(bar, P::tx);
+        lay.template load<kBf16>(dst, &plane, a, s, NB, bar);
+      }
+    }
+    return;
+  }
+
+  const int wg = tid / kWGThreads, t = tid % kWGThreads;
+  const int q0 = (lay.qblk * kWG + wg) * kM;
+  const int nq = min(kM, a.B - q0);
+  // A warpgroup past B only keeps the ring turning; on an fp32 plane with
+  // kWG > 1 it still takes its share of each slice's split (its queries are
+  // zero and every key it forms is masked).
+  if (nq <= 0 && (kBf16 || kWG == 1)) {
+    for (int s = 0; s < kSlices; ++s) {
+      mbar_wait(full + 8 * (s % kStages), (s / kStages) & 1);
+      mbar_arrive(empty + 8 * (s % kStages));
+    }
+    return;
+  }
+
+  // Stage this warpgroup's query block (rows past B are zero) as its bf16
+  // parts in the swizzled A layout.
+  constexpr int kQPart = kWG * P::kQ;     // from one part to the next
+  const int qoff = wg * P::kQ;
+  for (int i = t; i < kM * (kDim / 8); i += kWGThreads) {
+    const int m = i / (kDim / 8), k = (i % (kDim / 8)) * 8;
+    float x[8];
+    if (m < nq) {
+      const float4* src = reinterpret_cast<const float4*>(
+          a.q + (long long)(q0 + m) * kDim + k);
+      const float4 u = src[0], w = src[1];
+      x[0] = u.x; x[1] = u.y; x[2] = u.z; x[3] = u.w;
+      x[4] = w.x; x[5] = w.y; x[6] = w.z; x[7] = w.w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) x[e] = 0.f;
+    }
+    uint4 part[P::kParts];
+    split8<P::kParts>(x, part);
+    const int off = swz(kM, m, k);
+#pragma unroll
+    for (int j = 0; j < P::kParts; ++j)
+      *reinterpret_cast<uint4*>(sm + P::q + j * kQPart + qoff + off) = part[j];
+  }
+  fence_async_smem();
+  wg_sync(wg);
+
+  // This thread's fragment: rows 16·warp + lane/4 + 8g, columns
+  // 8j + 2·(lane % 4) + h, accumulator element 4j + 2g + h. Each row's
+  // predicate as closed bounds on C and T: [v, v] for C == v, [l, r] for
+  // the T range, (−inf, inf) when inactive, an empty C range for rows past
+  // B. (A NaN attribute never passes; data has none.)
+  constexpr int kE = NB / 2;              // fragment elements a thread
+  const int warp = t / 32, lane = t % 32;
+  const float kInf = __int_as_float(0x7F800000);
+  float qn[2], clo[2], chi[2], tlo[2], thi[2];
+#pragma unroll
+  for (int g = 0; g < 2; ++g) {
+    const int m = 16 * warp + lane / 4 + 8 * g;
+    const bool live = m < nq;
+    // a row past B (an idle warpgroup's too) reads a valid query's fields;
+    // not q0 + m itself, which the compiler would then keep live for the
+    // output rows across the slice loop
+    const int gq = min(q0, a.B - 1) + (live ? m : 0);
+    const bool ac = a.ac[gq] != 0, at = a.at[gq] != 0;
+    qn[g] = a.qn[gq];
+    clo[g] = !live ? kInf : ac ? a.v[gq] : -kInf;
+    chi[g] = ac ? a.v[gq] : kInf;
+    tlo[g] = at ? a.l[gq] : -kInf;
+    thi[g] = at ? a.r[gq] : kInf;
+  }
+  int top[kE][RR];
+#pragma unroll
+  for (int e = 0; e < kE; ++e)
+#pragma unroll
+    for (int r = 0; r < RR; ++r) top[e][r] = kInfKey;
+
+  float acc[kE];
+#pragma unroll
+  for (int e = 0; e < kE; ++e) acc[e] = 0.f;
+  // query part j at qa + j·kQPart; slice part j at va + j·kV
+  const uint32_t qa = base + P::q + qoff, va = base + P::split;
+  for (int s = 0; s < kSlices; ++s) {
+    const int st = s % kStages;
+    unsigned char* stage = sm + P::ring + st * P::kStage;
+    if (!kBf16) consumers_sync<kWG>(wg);   // the last products are done with the parts
+    mbar_wait(full + 8 * st, (s / kStages) & 1);
+    if (!kBf16) {
+      // Split the fp32 slice (row-major, 512 B a row) into the swizzled
+      // bf16 parts, all consumers sharing the work.
+      for (int i = tid; i < NB * (kDim / 8); i += kConsumers) {
+        const int m = i / (kDim / 8), k = (i % (kDim / 8)) * 8;
+        const float4* src = reinterpret_cast<const float4*>(stage + m * 512 + k * 4);
+        const float4 u = src[0], w = src[1];
+        const float x[8] = {u.x, u.y, u.z, u.w, w.x, w.y, w.z, w.w};
+        uint4 part[P::kParts];
+        split8<P::kParts>(x, part);
+        const int off = swz(NB, m, k);
+#pragma unroll
+        for (int j = 0; j < P::kParts; ++j)
+          *reinterpret_cast<uint4*>(sm + P::split + j * P::kV + off) = part[j];
+      }
+      fence_async_smem();
+      consumers_sync<kWG>(wg);
+    }
+    fence_acc<NB>(acc);
+    wgmma_fence();
+    if constexpr (kPasses == 1) {
+      product<NB, true>(acc, qa, base + P::ring + st * P::kStage);
+    } else if constexpr (kPasses == 3) {        // qhi·Vhi + qhi·Vlo + qlo·Vhi
+      product<NB, true>(acc, qa, va);
+      product<NB, false>(acc, qa, va + P::kV);
+      product<NB, false>(acc, qa + kQPart, va);
+    } else {      // ql·Vh + qm·Vm + qh·Vl + qm·Vh + qh·Vm + qh·Vh
+      product<NB, true>(acc, qa + 2 * kQPart, va);
+      product<NB, false>(acc, qa + kQPart, va + P::kV);
+      product<NB, false>(acc, qa, va + 2 * P::kV);
+      product<NB, false>(acc, qa + kQPart, va);
+      product<NB, false>(acc, qa, va + P::kV);
+      product<NB, false>(acc, qa, va);
+    }
+    wgmma_commit();
+    wgmma_wait();
+    fence_acc<NB>(acc);
+
+    // Branch-free over the fragment (a warp-wide branch would be taken
+    // almost always): (‖d‖² − 2·q·d) + ‖q‖² in the TPU kernel's order
+    // (2·q·d is exact, so one fma rounds as the subtraction does); the
+    // integer max maps −0.0 and below to +0.0, whose key would otherwise
+    // sort first; a masked key becomes +inf, which the min/max insert
+    // passes through, as it does any key not below the list's R-th.
+    const float* sC = reinterpret_cast<const float*>(stage + P::kPlane);
+    const float* sT = sC + NB;
+    const float* sdn = sT + NB;
+    const int* soid = reinterpret_cast<const int*>(sdn + NB);
+#pragma unroll
+    for (int j = 0; j < NB / 8; ++j) {
+      const int c0 = 8 * j + 2 * (lane & 3);      // this thread's column pair
+      const float2 C2 = *reinterpret_cast<const float2*>(sC + c0);
+      const float2 T2 = *reinterpret_cast<const float2*>(sT + c0);
+      const float2 dn2 = *reinterpret_cast<const float2*>(sdn + c0);
+      const int2 oid2 = *reinterpret_cast<const int2*>(soid + c0);
+      const bool live[2] = {c0 < lay.nb && oid2.x < a.sn,
+                            c0 + 1 < lay.nb && oid2.y < a.sn};
+#pragma unroll
+      for (int e = 4 * j; e < 4 * j + 4; ++e) {
+        const int h = e & 1, g = (e >> 1) & 1;
+        const float Cb = h ? C2.y : C2.x, Tb = h ? T2.y : T2.x;
+        const float d = __fadd_rn(__fmaf_rn(-2.f, acc[e], h ? dn2.y : dn2.x), qn[g]);
+        const bool ok = live[h] && Cb >= clo[g] && Cb <= chi[g] && Tb >= tlo[g] &&
+                        Tb <= thi[g];
+        int k = ok ? (max(__float_as_int(d), 0) & kKeyMask) | s : kInfKey;
+#pragma unroll
+        for (int r = 0; r < RR; ++r) {     // carry the larger of each pair down
+          const int lo = min(top[e][r], k);
+          k = max(top[e][r], k);
+          top[e][r] = lo;
+        }
+      }
+    }
+    mbar_arrive(empty + 8 * st);
+  }
+
+  // Entry r of column c for query q0 + m: out[q0 + m, col(c) + r·bins].
+  // (q0 + m < B is m < nq, without keeping nq live across the slice loop.)
+  const long long W = (long long)a.ntw * a.R * a.bins;   // an output row
+#pragma unroll
+  for (int e = 0; e < kE; ++e) {
+    const int c = 8 * (e / 4) + 2 * (lane & 3) + (e & 1);
+    const int m = 16 * warp + lane / 4 + 8 * ((e >> 1) & 1);
+    if (q0 + m >= a.B || c >= lay.nb) continue;
+    const long long o = (long long)(q0 + m) * W + lay.col(a, c);
+#pragma unroll
+    for (int r = 0; r < RR; ++r) {
+      if (r >= a.R) break;
+      lay.emit(a, o + (long long)r * a.bins, c, top[e][r]);
+    }
+  }
+}
+
+// Encodes the plane's tensor map and launches one instantiation. Returns a
+// cudaError_t, or −CUresult (< 0) when the map cannot be encoded.
+template <class L, int kPasses, int NB, int kWG, int RR, int kStages>
+int launch_wgmma(Args a, cudaStream_t stream) {
+  using P = Plan<kPasses, NB, kWG, kStages>;
+  EncodeTiled enc = encode_fn();
+  if (enc == nullptr) return cudaErrorSymbolNotFound;
+  CUtensorMap plane;
+  const CUresult res = L::encode(enc, &plane, a, NB, P::kBf16);
+  if (res != CUDA_SUCCESS) return -(int)res;
+  a.nqb = (a.B + kWG * kM - 1) / (kWG * kM);
+  a.nbb = L::bin_blocks(a, NB);
+  const long long blocks = L::blocks(a);
+  if (blocks > 0x7FFFFFFFLL) return cudaErrorInvalidConfiguration;
+  auto kernel = scan_wgmma<L, kPasses, NB, kWG, RR, kStages>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, P::smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<(unsigned)blocks, kWG * kWGThreads + 32, P::smem, stream>>>(plane, a);
+  return cudaGetLastError();
+}
+
+// The tensor-core body at bin depth R ≤ 8: NB4 bins a CTA for R ≤ 4, 32
+// above, with the top-R held at 1, 2, 3, 4, 6 or 8 entries.
+template <class L, int kPasses, int NB4, int kWG, int kStages>
+int launch_wgmma_r(const Args& a, cudaStream_t stream) {
+  static_assert(kMaxWgmmaR == 8, "one case per register list length");
+  switch (a.R) {
+    case 1: return launch_wgmma<L, kPasses, NB4, kWG, 1, kStages>(a, stream);
+    case 2: return launch_wgmma<L, kPasses, NB4, kWG, 2, kStages>(a, stream);
+    case 3: return launch_wgmma<L, kPasses, NB4, kWG, 3, kStages>(a, stream);
+    case 4: return launch_wgmma<L, kPasses, NB4, kWG, 4, kStages>(a, stream);
+    case 5:
+    case 6: return launch_wgmma<L, kPasses, 32, kWG, 6, kStages>(a, stream);
+    default: return launch_wgmma<L, kPasses, 32, kWG, 8, kStages>(a, stream);
+  }
+}
+
+}  // namespace

@@ -7,17 +7,21 @@ Each replaces a Pallas kernel of ``hvq_tpu/ops/pallas_scan.py``:
   (``csrc/lane_scan.cu``) — ``fused_packed_scan``, ``fused_packed_scan_v2``
   and ``fused_bin_scan``.
 
+K1, K3 and K2 share one tensor-core body (``csrc/scan_wgmma.cuh``, which
+both sources include) for ``bin_top`` ≤ 8 and keep a CUDA-core body above
+(K4 has only the CUDA-core one): dispatch on shape, both built and checked.
+
 The sources are compiled with ``nvcc`` for ``sm_90a``, one process per
 source in parallel, and linked into one shared library with a plain C
 interface, at first CUDA use, into ``hvq_tpu_torch/_build/`` keyed by a
-hash of the sources and flags. Importing this module builds nothing and
-needs no ``nvcc``.
+hash of the sources, the header and the flags. Importing this module
+builds nothing and needs no ``nvcc``.
 
 Each wrapper runs its kernel's plain PyTorch version (in ``ops/scan.py``)
 for tensors on the CPU and launches the kernel for CUDA tensors, or
 raises: there is no fallback. ``launches`` counts kernel launches only;
-``k1_body_launches`` splits K1's by body (tensor cores for ``bin_top`` ≤
-8, CUDA cores above: dispatch on shape, both built and checked).
+``k1_body_launches`` splits K1's by body and ``lane_body_launches`` K3's
+and K2's (the library says which body runs).
 """
 
 from __future__ import annotations
@@ -47,6 +51,8 @@ _SOURCES = (
     _PKG / "csrc" / "packed_scan_v3.cu",
     _PKG / "csrc" / "lane_scan.cu",
 )
+# Included by both sources: the tensor-core body of K1, K3 and K2.
+_HEADERS = (_PKG / "csrc" / "scan_wgmma.cuh",)
 BUILD_DIR = _PKG / "_build"
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
@@ -62,7 +68,10 @@ launches = {"packed_scan_v3": 0, "packed_scan": 0, "packed_scan_v2": 0,
 # K1's launches by body (csrc/packed_scan_v3.cu): the tensor-core body for
 # bin_top ≤ 8, the CUDA-core body above; the library says which runs.
 k1_body_launches = {"wgmma": 0, "simt": 0}
-_K1_BODIES = ("wgmma", "simt")
+_BODIES = ("wgmma", "simt")
+# K3's and K2's launches by body (csrc/lane_scan.cu), as K1's.
+lane_body_launches = {"packed_scan": {"wgmma": 0, "simt": 0},
+                      "packed_scan_v2": {"wgmma": 0, "simt": 0}}
 
 # ``mode`` of the C entry point hvq_lane_scan for each lane-layout kernel.
 _LANE_MODES = {"packed_scan": 0, "packed_scan_v2": 1, "bin_scan": 2}
@@ -73,7 +82,7 @@ build_info: dict = {}
 
 
 def reset_launches() -> None:
-    for counts in (launches, k1_body_launches):
+    for counts in (launches, k1_body_launches, *lane_body_launches.values()):
         for name in counts:
             counts[name] = 0
 
@@ -95,7 +104,7 @@ def nvcc_path() -> str:
 
 def _source_hash() -> str:
     h = hashlib.sha256()
-    for src in _SOURCES:
+    for src in (*_SOURCES, *_HEADERS):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -156,27 +165,32 @@ def build() -> ctypes.CDLL:
         return _lib
 
 
-def _load(so: Path) -> ctypes.CDLL:
-    """Load a kernel library and declare its C entry points."""
-    lib = ctypes.CDLL(str(so))
-    fn = lib.hvq_packed_scan_v3
-    fn.restype = ctypes.c_int
-    fn.argtypes = (
+# Each C entry point's argument types (all return an int).
+_ENTRY_POINTS = {
+    "hvq_packed_scan_v3": (
         [ctypes.c_void_p, ctypes.c_int]          # V, v_bf16
         + [ctypes.c_void_p] * 11                  # C T dn oid q qn ac v at l r
         + [ctypes.c_int] * 7                      # sn B n_pad db_tile R t0 ntw
         + [ctypes.c_void_p] * 3                   # out_d out_p stream
-    )
-    lib.hvq_packed_scan_v3_body.restype = ctypes.c_int
-    lib.hvq_packed_scan_v3_body.argtypes = [ctypes.c_int]
-    fn = lib.hvq_lane_scan
-    fn.restype = ctypes.c_int
-    fn.argtypes = (
+    ),
+    "hvq_packed_scan_v3_body": [ctypes.c_int],   # R
+    "hvq_lane_scan": (
         [ctypes.c_int]                            # mode
         + [ctypes.c_void_p] * 12                  # V C T dn oid q qn ac v at l r
         + [ctypes.c_int] * 5                      # sn B n_pad db_tile R
         + [ctypes.c_void_p] * 3                   # out_d out_i stream
-    )
+    ),
+    "hvq_lane_scan_body": [ctypes.c_int, ctypes.c_int],   # mode, R
+}
+
+
+def _load(so: Path, entries=tuple(_ENTRY_POINTS)) -> ctypes.CDLL:
+    """Load a kernel library and declare its C entry points ``entries``."""
+    lib = ctypes.CDLL(str(so))
+    for name in entries:
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = _ENTRY_POINTS[name]
     return lib
 
 
@@ -285,7 +299,7 @@ def packed_scan_v3(
             out_p, stream,
         ),
     )
-    k1_body_launches[_K1_BODIES[lib.hvq_packed_scan_v3_body(bin_top)]] += 1
+    k1_body_launches[_BODIES[lib.hvq_packed_scan_v3_body(bin_top)]] += 1
     return out
 
 
@@ -301,17 +315,23 @@ def _lane_scan(name, Vp, C, T, dn, oid, qV, active_c, v, active_t, l, r, sn,
     if device.type == "cpu":
         return plain[name](Vp, C, T, dn, oid, qV, active_c, v, active_t, l, r,
                            sn, db_tile=db_tile, bin_top=bin_top)
-    fn = build().hvq_lane_scan
-    return _launch(
+    if qV.data_ptr() % 16:             # read as float4s
+        raise ValueError("qV must be 16-byte aligned")
+    lib = build()
+    fn, mode = lib.hvq_lane_scan, _LANE_MODES[name]
+    out = _launch(
         name, device, B, nt * bin_top * (db_tile // BIN), qV, active_c,
         active_t,
         lambda qn, ac, at, out_d, out_i, stream: fn(
-            _LANE_MODES[name], Vp.data_ptr(), C.data_ptr(), T.data_ptr(),
+            mode, Vp.data_ptr(), C.data_ptr(), T.data_ptr(),
             dn.data_ptr(), oid.data_ptr(), qV.data_ptr(), qn, ac,
             v.data_ptr(), at, l.data_ptr(), r.data_ptr(), sn, B, n_pad,
             db_tile, bin_top, out_d, out_i, stream,
         ),
     )
+    if name in lane_body_launches:
+        lane_body_launches[name][_BODIES[lib.hvq_lane_scan_body(mode, bin_top)]] += 1
+    return out
 
 
 def packed_scan(
@@ -319,14 +339,21 @@ def packed_scan(
     db_tile: int = 8192,
     bin_top: int = 2,
 ):
-    """K3: the lane-layout packed scan at fp32, output contract of
+    """K3: the lane-layout packed scan, output contract of
     ``fused_packed_scan``.
 
     Bin b of a tile is its 128 contiguous rows b·128 + lane. Returns (dist
     (B, W) fp32 [low 7 bits zeroed, +inf = empty], pos (B, W) int32 =
     tile·Dt + b·128 + lane), W = nt · bin_top · db_tile/128. ``Vp`` is the
     fp32 plane. CPU tensors run ``packed_scan_plain(layout="lane",
-    precision="highest")``; CUDA tensors launch the kernel.
+    precision="highest")`` (IEEE fp32, what the JAX package computes on a
+    CPU); CUDA tensors launch the kernel: for ``bin_top`` ≤ 8 its
+    tensor-core body, q·d as the TPU kernel forms it (``Precision.HIGH``,
+    which Mosaic runs as the 6-pass bf16 emulation of fp32: each operand
+    split into three bf16 parts, six products chained smallest first into
+    one fp32 accumulator), above it the CUDA-core body in IEEE fp32 FMAs
+    (counted apart in ``lane_body_launches``). Both stay within the
+    certificate's fp32 slack of the plain version.
     """
     return _lane_scan("packed_scan", Vp, C, T, dn, oid, qV, active_c, v,
                       active_t, l, r, sn, db_tile, bin_top)
@@ -338,10 +365,13 @@ def packed_scan_v2(
     bin_top: int = 2,
 ):
     """K2: the lane-layout packed scan with the 3-pass bf16 split
-    ``(q_hi·d_hi + q_hi·d_lo) + q_lo·d_hi``, output contract of
+    ``q_hi·d_hi + q_hi·d_lo + q_lo·d_hi``, output contract of
     ``fused_packed_scan_v2`` (as :func:`packed_scan`). CPU tensors run
     ``packed_scan_plain(layout="lane", precision="high")``; CUDA tensors
-    launch the kernel.
+    launch the kernel: for ``bin_top`` ≤ 8 its tensor-core body (K1's
+    fp32-plane chain, three wgmma passes into one fp32 accumulator), above
+    it the CUDA-core body (three fp32 accumulators of the same split;
+    counted apart in ``lane_body_launches``).
     """
     return _lane_scan("packed_scan_v2", Vp, C, T, dn, oid, qV, active_c, v,
                       active_t, l, r, sn, db_tile, bin_top)

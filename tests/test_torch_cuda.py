@@ -375,3 +375,83 @@ def test_k1_is_deterministic(cuda, plane, db_tile, R):
         d, p = kernels.packed_scan_v3(*args, 120000, **kw)
         assert torch.equal(d.view(torch.int32), d0.view(torch.int32))
         assert torch.equal(p, p0)
+
+
+_LANE = ["packed_scan", "packed_scan_v2"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", _LANE)
+@pytest.mark.parametrize("R", [1, 2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("db_tile", [1024, 8192])
+def test_lane_wgmma_matches_plain_over_depths_tiles_and_batches(cuda, name, R, db_tile):
+    """K3's and K2's tensor-core body (R ≤ 8) against the plain version, at
+    batches that fill no, one and many 64-query blocks (B = 1000 leaves a
+    ragged last one) and at 8-bin tiles, where a CTA's 32 bins span four."""
+    for B in (1, 40, 100, 1000):
+        a, _ = _lane_agree(name, _k1_inputs(cuda, "fp32", B), 30000, db_tile, R)
+        assert a["ok"], (B, a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", _LANE)
+def test_lane_wgmma_reads_lanes_112_to_127(cuda, name):
+    """The vectors have 100 lanes, zero-padded to 128; with data in lanes
+    112–127 (the product's 8th k-step) of the plane and of one query in
+    each warpgroup the result still matches plain."""
+    args = list(_inputs(cuda, B=100, seed=23))
+    g = torch.Generator(device=cuda).manual_seed(5)
+    args[0] = args[0].clone()
+    args[0][:, 112:] = torch.rand(args[0].shape[0], 16, device=cuda, generator=g) * 6 - 3
+    args[3] = (args[0] * args[0]).sum(1)
+    args[5] = args[5].clone()
+    args[5][[3, 70], 112:] = 2.5
+    for R in (1, 4):
+        a, _ = _lane_agree(name, args, 30000, 1024, R)
+        assert a["ok"], (R, a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", _LANE)
+def test_lane_kernel_counts_launches_per_body(cuda, name):
+    args = _inputs(cuda)
+    kernels.reset_launches()
+    for R in (1, 3, 4, 6, 8):
+        getattr(kernels, name)(*args, 100, db_tile=1024, bin_top=R)
+    for R in (9, 32):
+        getattr(kernels, name)(*args, 100, db_tile=1024, bin_top=R)
+    kernels.bin_scan(*args, 100, db_tile=1024, bin_top=2)
+    other = next(n for n in _LANE if n != name)
+    assert kernels.lane_body_launches[name] == {"wgmma": 5, "simt": 2}
+    assert kernels.lane_body_launches[other] == {"wgmma": 0, "simt": 0}
+    assert kernels.launches == {**dict.fromkeys(kernels.launches, 0), name: 7,
+                                "bin_scan": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", _LANE)
+@pytest.mark.parametrize("db_tile,R", [(8192, 1), (8192, 2), (8192, 3), (8192, 4),
+                                       (8192, 8), (1024, 3)])
+def test_lane_wgmma_is_deterministic(cuda, name, db_tile, R):
+    """Five runs on the same inputs give bit-identical outputs: B = 1024
+    over 8 tiles of 8192 rows, the lane paths' shape (R = 4, rung 1 at 8),
+    and 8-bin tiles."""
+    args = _inputs(cuda, n_pad=8 * 8192, B=1024, seed=43)
+    kw = dict(db_tile=db_tile, bin_top=R)
+    fn = getattr(kernels, name)
+    d0, p0 = fn(*args, 60000, **kw)
+    for _ in range(4):
+        d, p = fn(*args, 60000, **kw)
+        assert torch.equal(d.view(torch.int32), d0.view(torch.int32))
+        assert torch.equal(p, p0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["v1", "v2"])
+@pytest.mark.parametrize("scale", [1.0, 64.0, 4096.0])
+def test_lane_certificate_slack_boundary_stress(cuda, impl, scale):
+    """The certificate stress through BatchedEngine(scan_impl="v1"/"v2"):
+    oracle-exact at every scale, with the lane kernel on its tensor-core
+    body."""
+    counts = certificate_stress(cuda, "fp32", scale, scan_impl=impl)
+    assert counts["wgmma"] >= 1 and counts["simt"] == 0, counts

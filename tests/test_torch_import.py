@@ -198,12 +198,15 @@ def test_chip_smoke_imports_no_jax_and_refuses_without_a_card():
 
 def test_k1_ablation_edits_find_their_anchors_in_the_source():
     """tools/k1_ablate builds its variants by anchored edits of K1's
-    source: each anchor must occur exactly once, and each edit must change
-    the text (importing the tool needs no card and no nvcc)."""
+    tensor-core body, the header both kernel sources include: each anchor
+    must occur exactly once, and each edit must change the text (importing
+    the tool needs no card and no nvcc)."""
     from hvq_tpu_torch.ops import kernels
     from hvq_tpu_torch.tools import k1_ablate
 
-    src = kernels._SOURCES[0].read_text()
+    src = kernels._HEADERS[0].read_text()
+    for cu in kernels._SOURCES:
+        assert f'#include "{kernels._HEADERS[0].name}"' in cu.read_text()
     assert k1_ablate.VARIANTS["base"] == ()
     for name, edits in k1_ablate.VARIANTS.items():
         text = src
@@ -212,3 +215,60 @@ def test_k1_ablation_edits_find_their_anchors_in_the_source():
             text = text.replace(anchor, edit)
         assert (text != src) == bool(edits), name
         assert text.count("{") == text.count("}"), name
+
+
+def test_lane_shape_edits_find_their_anchor_in_lane_scan():
+    """tools/k1_ablate builds each K3/K2 tensor-core shape by
+    editing one line of csrc/lane_scan.cu: the shipped shape's line occurs
+    there exactly once, and every other shape changes it."""
+    from hvq_tpu_torch.ops import kernels
+    from hvq_tpu_torch.tools import k1_ablate
+
+    cu = next(p for p in kernels._SOURCES if p.name == "lane_scan.cu")
+    src = cu.read_text()
+    for name in k1_ablate.LANE_SHAPES:
+        text = k1_ablate.edited(cu, k1_ablate.lane_shape_edit(name))
+        assert (text != src) == (name != "base"), name
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module (it needs no card to import)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
+
+
+def test_chip_smoke_bounds_count_the_tpu_kernels_passes():
+    """K2's bound counts its three bf16 passes, K3's and K4's the six of
+    the fp32 emulation their TPU kernels ask for (HIGH maps to HIGHEST),
+    at the D = 10⁶ lane shapes (n_pad = 123·8192, B = 1024; R = 4 for K3
+    and K2, K4's own R = 2); K3 and K4 keep the IEEE fp32 CUDA-core figure
+    beside it."""
+    cs = _chip_smoke()
+    n, B = 123 * 8192, 1024
+    k2 = cs.lane_bound("packed_scan_v2", n, B, n * 4 // 128)
+    k3 = cs.lane_bound("packed_scan", n, B, n * 4 // 128)
+    k4 = cs.lane_bound("bin_scan", n, B, n * 2 // 128)
+    assert round(k2["bound_ms"], 3) == 0.626 and "bound_fp32_simt_ms" not in k2
+    for b in (k3, k4):
+        assert round(b["bound_ms"], 3) == 1.252 and b["bound_by"] == "operations"
+        assert round(b["bound_fp32_simt_ms"], 3) == 3.080
+
+
+def test_chip_smoke_bounds_the_tpu_probe_scripts_from_their_shapes():
+    """The three measurement scripts that reach pl.pallas_call outside the
+    system's paths: the trivial copy and the int8 probe move more bytes
+    than they compute on; K1's anatomy is the 3-pass (1-pass) product of
+    B = 1024 over 61·16384 rows at all 128 lanes."""
+    pb = _chip_smoke().probe_bounds()
+    assert set(pb) == {"pallas_probe:32 _trivial", "int8_probe:83 bf16",
+                       "int8_probe:83 int8", "v3_anatomy:189 fp32",
+                       "v3_anatomy:189 bf16"}
+    for name in ("pallas_probe:32 _trivial", "int8_probe:83 bf16", "int8_probe:83 int8"):
+        assert pb[name]["bound_by"] == "bytes", name
+    assert round(pb["v3_anatomy:189 fp32"]["bound_ms"], 3) == 0.795
+    assert round(pb["v3_anatomy:189 bf16"]["bound_ms"], 3) == 0.265
+    assert pb["int8_probe:83 int8"]["bound_ms"] < pb["int8_probe:83 bf16"]["bound_ms"]

@@ -12,6 +12,11 @@
   summation order), ids equal, padding ids included.
 * ``kernel_bin_top`` and the lane ``binned_stream_topk`` against the JAX's,
   the wrappers' CPU route and input checks, and the K4 agreement check.
+* A rehearsal of K3's arithmetic on the card, the bf16×6 emulation of fp32
+  that Mosaic runs for HIGHEST (``csrc/scan_wgmma.cuh``): a test-local
+  six-pass product put in the plain scan's place, held to
+  ``fused_packed_scan`` in interpret mode (test_torch_scan's ``TOL``) and to
+  fp64 within a quarter of the certificate's slack at the stress norms.
 """
 
 import jax
@@ -22,6 +27,7 @@ import torch
 
 from hvq_tpu.ops import pallas_scan as jscan
 from hvq_tpu.ops import topk as jtopk
+from hvq_tpu_torch.models.batched import _CERT_REL_MM
 from hvq_tpu_torch.ops import kernels
 from hvq_tpu_torch.ops import scan as tscan
 from hvq_tpu_torch.ops import topk as ttopk
@@ -285,3 +291,94 @@ def test_bin_scan_agreement_flags_ids_scores_and_padding():
     wrong_pad[pad] += 1
     res = check(s, wrong_pad.view_as(i))
     assert not res["ok"] and not res["pad_ids_ok"]
+
+
+def _bf16x6(q, V):
+    """q·Vᵀ as the bf16×6 emulation of fp32: each operand split into three
+    bf16 parts (hi = bf16_rn(x), mid = bf16_rn(x − hi), lo = bf16_rn(x − hi
+    − mid)), the six products K3's tensor-core body chains, smallest first,
+    each exact in fp32 (bf16·bf16), summed in fp32."""
+    def parts(x):
+        out, rest = [], x.float()
+        for _ in range(3):
+            out.append(rest.to(torch.bfloat16).float())
+            rest = rest - out[-1]
+        return out
+
+    (qh, qm, ql), (Vh, Vm, Vl) = parts(q), parts(V)
+    acc = torch.zeros(q.shape[:-1] + V.shape[-2:-1], dtype=torch.float32)
+    for a, b in ((ql, Vh), (qm, Vm), (qh, Vl), (qm, Vh), (qh, Vm), (qh, Vh)):
+        acc = acc + a @ b.transpose(-1, -2)
+    return acc
+
+
+@pytest.fixture
+def six_pass(monkeypatch):
+    """The plain scan with its "highest" product replaced by the six-pass one."""
+    dot = tscan.dot_nt
+    monkeypatch.setattr(tscan, "dot_nt", lambda q, V, precision: (
+        _bf16x6(q, V) if precision == "highest" else dot(q, V, precision)))
+
+
+@pytest.mark.parametrize("db_tile,n_pad,R", LANE_CASES)
+def test_six_pass_product_matches_pallas_kernel_interpret(six_pass, db_tile, n_pad, R):
+    jx, tx = _case(60 + R, n_pad=n_pad)
+    sn = n_pad - 300
+    want = jscan.fused_packed_scan(*jx, jnp.int32(sn), db_tile=db_tile, bin_top=R,
+                                   interpret=True)
+    got = tscan.packed_scan_plain(*tx, sn, db_tile=db_tile, bin_top=R, layout="lane",
+                                  precision="highest")
+    _assert_scans_agree(got, want)
+
+
+@pytest.mark.parametrize("scale", [1.0, 64.0, 4096.0])
+def test_six_pass_product_stays_inside_a_quarter_of_the_certificate_slack(six_pass, scale):
+    """The certificate stress layout (data and queries × scale, 64 rows on a
+    near-exact sphere around query 0), the lane paths' Dt = 8192 and R = 4:
+    every kept distance against its fp64 value, net of the key's own 2⁻¹⁶
+    truncation, uses at most a quarter of ``_CERT_REL_MM·(‖q‖² + max‖d‖²)``
+    (chip_smoke holds the kernel itself to half)."""
+    n_pad, B = 16384, 16
+    rng = np.random.default_rng(33)
+    V = rng.uniform(-6, 6, (n_pad, 128)).astype(np.float32) * np.float32(scale)
+    q = rng.uniform(-6, 6, (B, 128)).astype(np.float32) * np.float32(scale)
+    V[:, 100:] = q[:, 100:] = 0.0
+    dirs = rng.standard_normal((64, 100))
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    radius = 0.1 * scale * (1.0 + 1e-7 * rng.standard_normal((64, 1)))
+    V[:64, :100] = (q[0, :100].astype(np.float64) + radius * dirs).astype(np.float32)
+    Vt, qt = torch.from_numpy(V), torch.from_numpy(q)
+    dn = (Vt * Vt).sum(1)
+    z, f = torch.zeros(n_pad), torch.zeros(B, dtype=torch.bool)
+    d, pos = tscan.packed_scan_plain(
+        Vt, z, z, dn, torch.arange(n_pad, dtype=torch.int32), qt, f, torch.zeros(B), f,
+        torch.zeros(B), torch.zeros(B), n_pad, db_tile=8192, bin_top=4, layout="lane",
+        precision="highest")
+    fin = torch.isfinite(d)
+    qi = torch.nonzero(fin)[:, 0]
+    true = ((qt.double()[qi] - Vt.double()[pos[fin].long()]) ** 2).sum(1)
+    slack = _CERT_REL_MM * ((qt.double() ** 2).sum(1)[qi] + float(dn.max()))
+    ratio = float((((d[fin].double() - true).abs() - 2.0 ** -16 * true) / slack).max())
+    assert fin.all() and ratio <= 0.25, ratio
+    # bin 0 is query 0's sphere (rows 0-63): its R kept rows lie on it
+    assert bool((pos[0].view(2, 4, 64)[0, :, 0] < 64).all())
+
+
+def test_reset_launches_clears_the_per_body_counts_and_cpu_runs_count_nothing():
+    _, tx = _case(24)
+    kernels.reset_launches()
+    for name in ("packed_scan", "packed_scan_v2"):
+        for R in (4, 16):            # a tensor-core depth and a CUDA-core one
+            getattr(kernels, name)(*tx, 4000, db_tile=1024, bin_top=R)
+    assert kernels.lane_body_launches == {
+        "packed_scan": {"wgmma": 0, "simt": 0},
+        "packed_scan_v2": {"wgmma": 0, "simt": 0}}
+    assert set(kernels.launches.values()) == {0}
+    kernels.lane_body_launches["packed_scan"]["wgmma"] = 3
+    kernels.lane_body_launches["packed_scan_v2"]["simt"] = 2
+    kernels.k1_body_launches["wgmma"] = 1
+    kernels.launches["packed_scan_v2"] = 5
+    kernels.reset_launches()
+    assert all(v == 0 for c in kernels.lane_body_launches.values() for v in c.values())
+    assert set(kernels.k1_body_launches.values()) == {0}
+    assert set(kernels.launches.values()) == {0}
