@@ -8,7 +8,9 @@ Phases, in order; any failure exits non-zero with a traceback:
 1. probe: a CUDA device must be present (there is no CPU path); prints
    the card's name and power limit, torch, CUDA and nvcc versions;
 2. build: compiles the CUDA kernels K1–K4 from ``hvq_tpu_torch/csrc``
-   into one library and prints ptxas' registers and spills per kernel;
+   into one library and, at the same time, the TPU probe kernels into a
+   second one (``ops/probe_kernels.py``), and prints ptxas' registers and
+   spills per kernel and instantiation;
 3. kernel vs plain: each kernel against its plain PyTorch version on the
    card — K1 over both scan planes, bin depths R (its tensor-core body for
    R ≤ 8, its CUDA-core body above), tiles, windows, mixed predicates and
@@ -29,6 +31,22 @@ Phases, in order; any failure exits non-zero with a traceback:
    rows at R 1–4 and 8, 8-bin tiles at R 3 and one R = 32 case on the
    CUDA-core body; the outputs must be bit-identical (every kernel is also
    rerun and held bit for bit at its main-path shape in phases 4–7);
+3d. the TPU probe kernels (the three Pallas kernels of ``experiments/``,
+   each driven by its tool, ``hvq_tpu_torch/tools/``): every variant
+   against its plain version on small cases (the K1 anatomy's six stages
+   on the fp32, bf16 and int8 planes at R 1–4, B = 100 and 1000 (a ragged
+   query block), three tiles, mixed predicates, a sample limit and a bin
+   whose rows are all masked, mmc at R 1 and two 16384-row tiles; the
+   int8 probe's four variants at B 100, 256 and 1000 over 2–3 tiles;
+   ``_trivial`` on an odd size), then each at its script's own shape and
+   rerun twice bit for bit; ``pallas_probe``'s K3 check (K3 against the
+   plain lane scan at B 256, Dt 8192, 128 tiles); then, with the probe
+   counts at 0, the tools' timing runs (the 15 anatomy variants and four
+   cuts of K1 on the bf16 plane, the four
+   int8-probe variants with the int8 transpose alone and the product-only
+   yardsticks ``torch.matmul`` / ``torch._int_mm``, ``_trivial`` beside
+   ``x * 2``), each beside its bound and its plain version's time. int8
+   variants must equal their plain versions bit for bit;
 4. main paths at D=10⁶ rows: one dataset, its 64-query oracle answer and
    the streaming exact path's answer for all 10⁴ mixed queries, computed
    once; then the batched engine with K1 (``scan_impl="v3"``, fp32 plane),
@@ -54,8 +72,9 @@ partitioned window), K3 and K2 at theirs (D=10⁶, Dt=8192, R=4), each
 beside its bound, its plain version and ``torch.matmul`` of the same bf16
 passes alone (product only: not the same function, and the port never
 calls it). The last three lines are the card (``nvidia-smi`` name, power
-limit), a JSON object describing each kernel with its time, bound and
-launches, and ``{"ok": true, "device": {...}}``.
+limit), a JSON object describing each kernel (K1–K4, then each probe
+kernel and variant, whose launches are those of phase 3d's timing runs)
+with its time, bound and launches, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -65,6 +84,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -81,9 +101,12 @@ from hvq_tpu_torch.tools import workload  # noqa: E402
 from hvq_tpu_torch import get_engine  # noqa: E402
 from hvq_tpu_torch.models import batched  # noqa: E402
 from hvq_tpu_torch.models.device_db import DeviceDB  # noqa: E402
-from hvq_tpu_torch.ops import kernels  # noqa: E402
+from hvq_tpu_torch.ops import kernels, probe_kernels  # noqa: E402
 from hvq_tpu_torch.ops.distance import require_ieee_fp32  # noqa: E402
 from hvq_tpu_torch.ops.masks import query_predicate_fields  # noqa: E402
+from hvq_tpu_torch.tools import int8_probe, pallas_probe, v3_anatomy  # noqa: E402
+from hvq_tpu_torch.tools.card import (  # noqa: E402
+    PEAK_BF16, PEAK_FP32, PEAK_INT8, bound as card_bound, card_line, event_ms)
 from hvq_tpu_torch.utils.check import bin_scan_agreement, scan_agreement  # noqa: E402
 from hvq_tpu_torch.utils.timing import PhaseTimer  # noqa: E402
 
@@ -107,24 +130,10 @@ IMPL_KERNEL = {"v3": "packed_scan_v3", "v1": "packed_scan", "v2": "packed_scan_v
 # TPU kernels do: K3 and K4 ask for HIGHEST (K3 for HIGH, which Mosaic
 # maps to HIGHEST), the 6-pass bf16 emulation of fp32; K2 the 3-pass split.
 LANE_PASSES = {"packed_scan": 6, "packed_scan_v2": 3, "bin_scan": 6}
-# H100 SXM data-sheet peaks at 700 W (dense): bf16 tensor cores, fp32 on
-# the CUDA cores, int8 tensor cores, HBM3.
-PEAK_BF16 = 989e12
-PEAK_FP32 = 67e12
-PEAK_INT8 = 1979e12
-PEAK_BYTES = 3.35e12
 
 
 def log(*a):
     print(*a, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()
-    return out[torch.cuda.current_device()] if out else ""
 
 
 def probe() -> str:
@@ -142,14 +151,19 @@ def probe() -> str:
 
 
 def build() -> None:
+    """Both libraries at once (one nvcc per object, all started together)."""
     t0 = time.perf_counter()
-    kernels.build()
-    info = kernels.build_info
-    log(f"build: {time.perf_counter() - t0:.2f} s (nvcc {info['seconds']:.2f} s, "
-        f"compiled={info['compiled']}) -> {info['path']}")
-    for line in info["log"].splitlines():
-        if "entry function" in line or "registers" in line or "spill" in line:
-            log("  ptxas: " + line.strip())
+    with ThreadPoolExecutor(2) as pool:
+        for job in [pool.submit(kernels.build), pool.submit(probe_kernels.build)]:
+            job.result()
+    log(f"build: {time.perf_counter() - t0:.2f} s")
+    for mod in (kernels, probe_kernels):
+        info = mod.build_info
+        log(f"  {os.path.basename(info['path'])}: nvcc {info['seconds']:.2f} s, "
+            f"compiled={info['compiled']}")
+        for line in info["log"].splitlines():
+            if "entry function" in line or "registers" in line or "spill" in line:
+                log("  ptxas: " + line.strip())
 
 
 def scan_inputs(Vs, C, T, dn, qV, qtype, v, l, r, oid=None):
@@ -403,11 +417,8 @@ def bound(rows: int, B: int, W: int, plane_bytes: int, passes: int,
     bytes (the 128-lane plane rows as stored, C, T, ‖d‖² and oid of every
     scanned row, the queries and their fields read once, the (B, W) fp32 +
     int32 output written once) at the HBM rate."""
-    ops_ms = passes * 2.0 * B * rows * VEC_DIM / peak * 1e3
     nbytes = rows * (128 * plane_bytes + 16) + B * (128 * 4 + 24) + B * W * 8
-    bytes_ms = nbytes / PEAK_BYTES * 1e3
-    return dict(bound_ms=max(ops_ms, bytes_ms),
-                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+    return card_bound(passes * 2.0 * B * rows * VEC_DIM, peak, nbytes)
 
 
 def k1_bound(Vs, B, W, rows) -> dict:
@@ -430,9 +441,11 @@ def lane_bound(name: str, rows: int, B: int, W: int) -> dict:
 
 def probe_bounds() -> dict:
     """The bounds of the three TPU measurement scripts in ``experiments/``
-    that reach ``pl.pallas_call`` (no path of the system runs them), from
-    the shapes in those scripts, by the rule of :func:`bound`. Their arrays
-    carry data in all 128 lanes, so the operations count 128:
+    that reach ``pl.pallas_call`` (on no path of the system; each has its
+    tool in ``hvq_tpu_torch/tools/``, whose own bounds at these variants
+    the CPU tests hold equal to these), from the shapes in those scripts,
+    by the rule of :func:`bound`. Their arrays carry data in all 128
+    lanes, so the operations count 128:
 
     * ``pallas_probe.py:32`` ``_trivial``: x·2 on a (256, 128) fp32 array;
     * ``int8_probe.py:83``: (256, 128) · (128, 16384) over 61 tiles, each
@@ -441,23 +454,133 @@ def probe_bounds() -> dict:
     * ``v3_anatomy.py:189``: K1's stages at B = 1024 over 61 tiles of 16384
       rows; the whole kernel at R = 2, three bf16 passes on the fp32 plane
       and one on the bf16 plane."""
-    def pick(ops_ms, bytes_ms):
-        return dict(bound_ms=max(ops_ms, bytes_ms),
-                    bound_by="operations" if ops_ms >= bytes_ms else "bytes")
-
     n = 256 * 128
-    out = {"pallas_probe:32 _trivial": pick(n / PEAK_FP32 * 1e3, 2 * n * 4 / PEAK_BYTES * 1e3)}
+    out = {"pallas_probe:32 _trivial": card_bound(n, PEAK_FP32, 2 * n * 4)}
     B, Dt, nt = 256, 16384, 61
     for dtype, size, peak in (("bf16", 2, PEAK_BF16), ("int8", 1, PEAK_INT8)):
         nbytes = (B + nt * Dt) * 128 * size + nt * B * 128 * 4
-        out[f"int8_probe:83 {dtype}"] = pick(2 * B * 128 * Dt * nt / peak * 1e3,
-                                             nbytes / PEAK_BYTES * 1e3)
+        out[f"int8_probe:83 {dtype}"] = card_bound(2 * B * 128 * Dt * nt, peak, nbytes)
     B, rows, R = 1024, nt * Dt, 2
     for plane, size, passes in (("fp32", 4, 3), ("bf16", 2, 1)):
         nbytes = rows * (128 * size + 16) + B * (2 * 128 * 2 + 24) + B * nt * R * 128 * 4
-        out[f"v3_anatomy:189 {plane}"] = pick(passes * 2 * B * rows * 128 / PEAK_BF16 * 1e3,
-                                              nbytes / PEAK_BYTES * 1e3)
+        out[f"v3_anatomy:189 {plane}"] = card_bound(passes * 2 * B * rows * 128, PEAK_BF16,
+                                                    nbytes)
     return out
+
+
+def anatomy_small() -> dict:
+    """Phase 3d: the K1 anatomy on small cases against its plain version.
+    Every stage on every plane at R 1–4 with B = 100 and at R 2 with B =
+    1000 (a ragged query block), over three 1024-row tiles (8 bins a tile,
+    a CTA's bin block ragged), mixed predicates, a sample limit (the last
+    200 rows) and one bin, bin 3 of tile 1, whose rows are all past it;
+    mmc512 at R 1; mm and full R 2 over two 16384-row tiles. Returns the
+    largest |Δ| by launch key."""
+    worst: dict = {}
+
+    def case(stage, R, plane, args, db_tile):
+        err = v3_anatomy.agreement(stage, plane, R, args, db_tile)
+        key = f"k1_anatomy {plane} {stage} R{R}"
+        worst[key] = max(worst.get(key, 0.0), err)
+
+    for B, n_pad, db_tile in ((100, 3 * 1024, 1024), (1000, 3 * 1024, 1024),
+                              (100, 2 * 16384, 16384)):
+        _, Vf, C, T, dn, qV, (qtype, v, l, r) = small_problem(11, n_pad=n_pad, B=B)
+        oid = np.arange(n_pad)
+        masked_bin = 1024 + 8 * np.arange(128) + 3
+        oid[masked_bin] += n_pad
+        sn = n_pad - 200
+        planes = dict(fp32=Vf, bf16=Vf.to(torch.bfloat16), int8=probe_kernels.quantize_i8(Vf))
+        for plane, Vs in planes.items():
+            args = (*scan_inputs(Vs, C, T, dn, qV, qtype, v, l, r, oid=oid), sn)
+            if db_tile == 16384:
+                cases = [("mm", 1), ("full", 2)]
+            else:
+                Rs = (1, 2, 3, 4) if B == 100 else (2,)
+                cases = [(stage, R) for stage in probe_kernels.STAGES for R in Rs]
+                if plane == "bf16" and B == 100:
+                    cases.append(("mmc512", 1))
+            for stage, R in cases:
+                case(stage, R, plane, args, db_tile)
+            if db_tile == 1024 and B == 100:
+                # the masked bin's keys are all +inf: 0x7F800000, no payload
+                out = probe_kernels.k1_anatomy(*args, stage="full", db_tile=1024, bin_top=3)
+                col = 1 * 3 * 8 + np.arange(3) * 8 + 3
+                assert bool((out[:, col] == 0x7F800000).all()), plane
+    log(f"  k1_anatomy vs plain: {len(worst)} variants on small cases, max |Δ| "
+        f"{max(worst.values()):.3g}")
+    return worst
+
+
+def int8_probe_small() -> dict:
+    """Phase 3d: the int8 probe's variants against their plain versions at
+    B 100, 256 and 1000 (ragged query blocks) over 2–3 tiles of 1024 or
+    2048 columns; returns the largest |Δ| by launch key."""
+    worst: dict = {}
+    for b, nt, dt in ((100, 2, 1024), (256, 3, 2048), (1000, 2, 1024)):
+        data = int8_probe.inputs(seed=b, b=b, dt=dt, nt=nt, sets=1)
+        for variant in int8_probe.VARIANTS:
+            qs, d = int8_probe.operands(data, variant)
+            key = f"int8_probe {variant}"
+            worst[key] = max(worst.get(key, 0.0), int8_probe.agreement(variant, qs[0], d))
+    log(f"  int8_probe vs plain: {worst}")
+    return worst
+
+
+def probe_phase(library_path: str) -> list:
+    """Phase 3d: the TPU probe kernels. Small cases, then each tool's
+    check at its script's shape, then the tools' timing runs with the probe
+    counts reset just before and read just after; returns the kernels
+    line's entries of the probe kernels."""
+    worst = anatomy_small()
+    worst.update(int8_probe_small())
+    x = torch.randn(1001, device=DEV)
+    assert torch.equal(probe_kernels.trivial(x), x * 2)
+    worst["trivial"] = pallas_probe.trivial_check()["max_abs_err"]
+
+    anat = v3_anatomy.inputs()
+    for name, err in v3_anatomy.check(anat).items():
+        key = next(f"k1_anatomy {p} {s} R{R}" for n, s, R, p in v3_anatomy.ALL_SPECS if n == name)
+        worst[key] = max(worst.get(key, 0.0), err)
+    i8 = int8_probe.inputs()
+    for variant, err in int8_probe.check(i8).items():
+        key = f"int8_probe {variant}"
+        worst[key] = max(worst[key], err)
+    k3 = pallas_probe.k3_check()
+    log(f"  pallas_probe K3 check: {k3}")
+
+    torch.cuda.synchronize()
+    probe_kernels.reset_launches()
+    t_anat = v3_anatomy.measure(anat)
+    t_i8 = int8_probe.measure(i8)
+    t_triv = pallas_probe.trivial_time()
+    torch.cuda.synchronize()
+    counts = dict(probe_kernels.launches)
+    log(f"  probe launches in the timing runs: {counts}")
+    del anat, i8
+    torch.cuda.empty_cache()
+
+    def entry(name, source, replaces, r, **extra):
+        assert counts.get(name, 0) >= 1, (name, counts)
+        return dict(name=name, route="cuda", source=source, replaces=replaces,
+                    library=library_path, launches=counts[name], max_abs_err=worst[name],
+                    ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                    bound_by=r["bound_by"], **extra)
+
+    entries = []
+    for name, stage, R, plane in v3_anatomy.ALL_SPECS:
+        key = f"k1_anatomy {plane} {stage} R{R}"
+        entries.append(entry(key, v3_anatomy.SOURCE, v3_anatomy.REPLACES, t_anat[name],
+                             variant=name, library_ms=None))
+    for variant in int8_probe.VARIANTS:
+        r = t_i8[variant]
+        entries.append(entry(f"int8_probe {variant}", int8_probe.SOURCE, int8_probe.REPLACES,
+                             r, library_ms=None, product_only_ms=r["product_only_ms"],
+                             **({"transpose_only_ms": r["transpose_only_ms"]}
+                                if "transpose_only_ms" in r else {})))
+    entries.append(entry("trivial", pallas_probe.SOURCE, pallas_probe.REPLACES, t_triv,
+                         library_ms=t_triv["library_ms"], k3_check=k3))
+    return entries
 
 
 # (query part, plane part) of each bf16 pass, parts 0 = hi, 1 = next, 2 =
@@ -494,21 +617,9 @@ def product_only_ms(Vs, qV, row0: int, rows: int, passes: int, reps: int = 3) ->
         for c in chunks:
             for i, j in CHAINS[passes]:
                 torch.matmul(qp[i], c[j].t())
-    ms = time_ms(run, reps)
+    ms = event_ms(run, reps)
     del chunks
     return ms
-
-
-def time_ms(fn, reps: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
 
 
 def first_batch(qs, B):
@@ -567,8 +678,8 @@ def run_engine(tag, eng, ds, qs, ref, seed) -> dict:
     del got
     log(f"[{tag}] {name} rerun twice: bit-identical")
     reps = 10 if n <= 2_000_000 else 3
-    ms = time_ms(lambda: getattr(kernels, name)(*args, **kw), reps)
-    plain_ms = time_ms(lambda: kernels.plain[name](*args, **kw), reps)
+    ms = event_ms(lambda: getattr(kernels, name)(*args, **kw), reps)
+    plain_ms = event_ms(lambda: kernels.plain[name](*args, **kw), reps)
     W = db.n_pad * eng.bin_top // 128
     if name == "packed_scan_v3":
         bnd = k1_bound(plane, B, W, db.n_pad)
@@ -651,8 +762,8 @@ def k4_path(tag, db, qs) -> dict:
     del got, want
     log(f"[{tag}] bin_scan vs plain at B={B}: {agree}")
     assert agree["ok"] and launches == 1, (agree, launches)
-    ms = time_ms(lambda: kernels.bin_scan(*args, **kw), 10)
-    plain_ms = time_ms(lambda: kernels.plain["bin_scan"](*args, **kw), 10)
+    ms = event_ms(lambda: kernels.bin_scan(*args, **kw), 10)
+    plain_ms = event_ms(lambda: kernels.plain["bin_scan"](*args, **kw), 10)
     bnd = lane_bound("bin_scan", db.n_pad, B, db.n_pad * R // 128)
     log(f"[{tag}] bin_scan {ms:.3f} ms/call, plain {plain_ms:.3f} ms/call, {bnd} "
         f"(B={B}, Dt={Dt}, R={R}, n_pad={db.n_pad})")
@@ -723,8 +834,8 @@ def window_vs_plain(tag, eng, qs) -> dict:
         assert same_bits(got, kernels.packed_scan_v3(*args, **kw)), "K1 window rerun differs"
     del got, pos
     log(f"[{tag}] K1 window rerun twice: bit-identical")
-    ms = time_ms(lambda: kernels.packed_scan_v3(*args, **kw), 3)
-    plain_ms = time_ms(lambda: kernels.plain["packed_scan_v3"](*args, **kw), 3)
+    ms = event_ms(lambda: kernels.packed_scan_v3(*args, **kw), 3)
+    plain_ms = event_ms(lambda: kernels.plain["packed_scan_v3"](*args, **kw), 3)
     rows = ntw * tv.db_tile
     bnd = k1_bound(tv.scan_V, B, rows * eng.bin_top // 128, rows)
     bnd["product_only_matmul_ms"] = product_only_ms(tv.scan_V, qV, row0, rows, 1)
@@ -807,13 +918,15 @@ def main() -> int:
     worst = {"packed_scan_v3": k1_vs_plain()}
     worst.update(lane_vs_plain())
     log(f"kernel vs plain: all cases ok, max_abs_err {worst}")
-    log(f"bounds of the TPU probe scripts (not ported): {json.dumps(probe_bounds())}")
+    log(f"bounds of the TPU probe scripts: {json.dumps(probe_bounds())}")
     cert = {"packed_scan_v3": certificate_error()}
     for name in ("packed_scan", "packed_scan_v2"):
         cert[name] = certificate_error(name, 8192, 4, planes=("fp32",))
     log(f"certificate error, share of the slack used (≤ 0.5): {cert}")
     deterministic = {name: determinism(name)
                      for name in ("packed_scan_v3", "packed_scan", "packed_scan_v2")}
+    log("TPU probe kernels (phase 3d):")
+    probes = probe_phase(os.path.basename(probe_kernels.build_info["path"]))
     r6 = paths_d1e6()
     torch.cuda.empty_cache()
     r7, reused = path_d1e7()
@@ -867,6 +980,7 @@ def main() -> int:
                          "window_d1e7_bf16": {k: r8["window"][k] for k in timing},
                      })
         entries.append(e)
+    entries += probes
     log(card)
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {

@@ -28,7 +28,11 @@
 //   (hi and lo = bf16_rn(x − hi) for three passes); every remainder is exact;
 // * NB bins a CTA, kWG consumer warpgroups of 64 queries (the wgmma M) that
 //   share each slice (on an fp32 plane its split as well), and kStages
-//   slices in flight.
+//   slices in flight;
+// * for the K1 anatomy probe only (k1_anatomy.cu, experiments/v3_anatomy.py):
+//   kPasses = 0, an int8 plane and int8 queries in one s8 pass into an int32
+//   accumulator, q·d = int32 × kAlphaI8 in fp32; and kStop, where the
+//   epilogue stops (Stage below). K1, K3 and K2 instantiate kStop = kFull.
 //
 // Structure. One producer warp keeps a ring of slices in flight: the plane's
 // slice by TMA, C, T, ‖d‖² and oid by cp.async, both completing on the
@@ -60,6 +64,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kSlices = 128;        // rows per bin = payload range
@@ -69,6 +75,16 @@ constexpr int kKeyMask = ~0x7F;
 constexpr int kMaxWgmmaR = 8;       // largest R on the tensor-core body
 constexpr int kM = 64;              // queries per warpgroup (wgmma M)
 constexpr int kWGThreads = 128;     // one consumer warpgroup
+// The int8 plane's dequantization scale, fp32((6/127)²) as
+// experiments/v3_anatomy.py:39 forms it (ALPHA_I8 in ops/probe_kernels.py).
+constexpr float kAlphaI8 = 0x1.248da4p-9f;
+
+// Where the epilogue stops (experiments/v3_anatomy.py:69-142). Before kPack
+// a bin keeps only the running min of one value: mm the product q·d, mmb
+// its bf16 rounding, dist max((‖d‖² − 2·q·d) + ‖q‖², 0), mask the same with
+// the predicate and sample mask (+inf where masked). kPack forms the packed
+// keys and keeps the top R with no mask; kFull is the shipped function.
+enum Stage { kMm = 0, kMmb = 1, kDist = 2, kMask = 3, kPack = 4, kFull = 5 };
 
 // One scan call. A tile is db_tile = bins·128 rows; the scan covers tiles
 // [t0, t0 + ntw); nbins: the 128-row bins of the whole plane; nbb, nqb: the
@@ -96,18 +112,22 @@ struct Args {
 // 1024-aligned: the 128B swizzle repeats every 8 rows of 128 bytes.
 template <int kPasses, int NB, int kWG, int kStages_>
 struct Plan {
-  static_assert(kPasses == 1 || kPasses == 3 || kPasses == 6, "1, 3 or 6 passes");
+  static_assert(kPasses == 0 || kPasses == 1 || kPasses == 3 || kPasses == 6,
+                "0 (s8), 1, 3 or 6 passes");
   static constexpr int kStages = kStages_;                   // slices in flight
+  static constexpr bool kI8 = kPasses == 0;                  // int8 plane
   static constexpr bool kBf16 = kPasses == 1;                // bf16 plane
-  static constexpr int kParts = kPasses == 1 ? 1 : kPasses == 3 ? 2 : 3;
-  static constexpr int kQ = kM * kDim * 2;                   // one bf16 query block
+  static constexpr bool kDirect = kPasses <= 1;              // wgmma reads the slice as stored
+  static constexpr int kElem = kI8 ? 1 : kBf16 ? 2 : 4;      // plane bytes an element
+  static constexpr int kParts = kPasses <= 1 ? 1 : kPasses == 3 ? 2 : 3;
+  static constexpr int kQ = kM * kDim * (kI8 ? 1 : 2);       // one query block (part)
   static constexpr int kV = NB * kDim * 2;                   // one bf16 slice part
-  static constexpr int kPlane = NB * kDim * (kBf16 ? 2 : 4); // one slice as stored
+  static constexpr int kPlane = NB * kDim * kElem;           // one slice as stored
   static constexpr int kAttr = 4 * NB * 4;                   // C, T, dn, oid
   static constexpr int kStage = ((kPlane + kAttr + 1023) / 1024) * 1024;
   static constexpr int q = 0;                                // [kParts][kWG] blocks
   static constexpr int split = q + kParts * kWG * kQ;        // [kParts] slice parts
-  static constexpr int ring = split + (kBf16 ? 0 : kParts * kV);
+  static constexpr int ring = split + (kDirect ? 0 : kParts * kV);
   static constexpr int bars = ring + kStages * kStage;
   static constexpr int bytes = bars + 2 * kStages * 8;
   static constexpr int smem = bytes + 1024;                  // alignment slack
@@ -225,6 +245,11 @@ __device__ __forceinline__ void fence_acc(float (&d)[N / 2]) {
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
+template <int N>
+__device__ __forceinline__ void fence_acc(int (&d)[N / 2]) {
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
+}
 
 #define K1_D16(c) c(d[0]), c(d[1]), c(d[2]), c(d[3]), c(d[4]), c(d[5]), \
     c(d[6]), c(d[7]), c(d[8]), c(d[9]), c(d[10]), c(d[11]), c(d[12]),   \
@@ -270,6 +295,47 @@ __device__ __forceinline__ void product(float (&d)[NB / 2], uint32_t a, uint32_t
     else
       wgmma<NB, false>(d, da, db);
   }
+}
+
+#define K1_N64_S8                                                         \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                            \
+  "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "                     \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "    \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, " \
+  "%29, %30, %31}, %32, %33, p;\n}\n"
+
+// D = A·Bᵀ (kInit) or D += A·Bᵀ, m64n64k32, s8 operands, s32 accumulators.
+// s8 wgmma has no transpose: both operands are K-major.
+template <bool kInit>
+__device__ __forceinline__ void wgmma_s8(int (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(K1_N64_S8 : K1_D32("+r") : "l"(da), "l"(db), "r"(kInit ? 0 : 1));
+}
+
+// One 128-lane s8 product: A (64 × 128 B) and B (NB × 128 B), K-major, one
+// 128B-swizzled row each; step k moves 32 bytes (32 k) along the row.
+template <int NB>
+__device__ __forceinline__ void product_s8(int (&d)[NB / 2], uint32_t a, uint32_t b) {
+  static_assert(NB == 64, "the int8 plane runs m64n64k32");
+#pragma unroll
+  for (int k = 0; k < kDim / 32; ++k) {
+    if (k == 0)
+      wgmma_s8<true>(d, desc(a), desc(b));
+    else
+      wgmma_s8<false>(d, desc(a + k * 32), desc(b + k * 32));
+  }
+}
+
+// Byte offset of chunk c (16 bytes, k = 16c..16c+15) of row `row` of a
+// K-major int8 operand in the 128B swizzle: one 128-byte row a row.
+__device__ __forceinline__ int swz8(int row, int c) {
+  return row * 128 + ((c ^ (row & 7)) << 4);
+}
+
+// q·d from the accumulator: as it is on an fp32 accumulator; int32 × kAlphaI8
+// (exact conversion: |q·d| ≤ 128·127² < 2²⁴, then one fp32 rounding) on s32.
+__device__ __forceinline__ float qd_of(float acc) { return acc; }
+__device__ __forceinline__ float qd_of(int acc) {
+  return __fmul_rn(__int2float_rn(acc), kAlphaI8);
 }
 
 // The kParts-way bf16 split of 8 values: part 0 = bf16_rn(x), each next part
@@ -358,20 +424,30 @@ struct Axis1 {
   }
   static int bin_blocks(const Args& a, int NB) { return (a.bins + NB - 1) / NB; }
   static long long blocks(const Args& a) { return (long long)a.nqb * a.nbb * a.ntw; }
-  // The plane (nbins·128, 128): bf16 as two 64-lane boxes in the 128B
-  // swizzle (wgmma's B layout); fp32 as one unswizzled 128-lane box.
+  // The plane (nbins·128, 128) of `elem`-byte elements: bf16 as two 64-lane
+  // boxes and int8 as one 128-lane box in the 128B swizzle (wgmma's B
+  // layout); fp32 as one unswizzled 128-lane box.
   static CUresult encode(EncodeTiled enc, CUtensorMap* map, const Args& a, int NB,
-                         bool bf16) {
+                         int elem) {
     const cuuint64_t dim[2] = {(cuuint64_t)kDim, (cuuint64_t)a.nbins * kSlices};
-    const cuuint64_t stride[1] = {(cuuint64_t)kDim * (bf16 ? 2 : 4)};
-    const cuuint32_t box[2] = {(cuuint32_t)(bf16 ? 64 : kDim), (cuuint32_t)NB};
+    const cuuint64_t stride[1] = {(cuuint64_t)kDim * elem};
+    const cuuint32_t box[2] = {(cuuint32_t)(elem == 2 ? 64 : kDim), (cuuint32_t)NB};
     const cuuint32_t es[2] = {1, 1};
-    return enc(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+    return enc(map, elem == 4   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                    : elem == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                : CU_TENSOR_MAP_DATA_TYPE_UINT8,
                2, const_cast<void*>(a.V), dim, stride, box, es,
                CU_TENSOR_MAP_INTERLEAVE_NONE,
-               bf16 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+               elem == 4 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B,
                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   }
+};
+
+// Axis1Keys (the K1 anatomy): Axis1, but the output is one int32 array of
+// the kept keys as they are (out_p), not decoded.
+struct Axis1Keys : Axis1 {
+  __device__ Axis1Keys(const Args& a, int NB) : Axis1(a, NB) {}
+  __device__ void emit(const Args& a, long long o, int, int key) const { a.out_p[o] = key; }
 };
 
 // Lane (K3, K2): global bin g = tile·bins + b is the 128 contiguous rows
@@ -416,7 +492,7 @@ struct Lane {
   // The fp32 plane as (128 lanes, 128 slices, nbins): strides 512 B and
   // 64 KB, box {128, 1, NB}, unswizzled (split in the kernel).
   static CUresult encode(EncodeTiled enc, CUtensorMap* map, const Args& a, int NB,
-                         bool) {
+                         int) {
     const cuuint64_t dim[3] = {(cuuint64_t)kDim, (cuuint64_t)kSlices,
                                (cuuint64_t)a.nbins};
     const cuuint64_t stride[2] = {(cuuint64_t)kDim * 4, (cuuint64_t)kSlices * kDim * 4};
@@ -430,12 +506,14 @@ struct Lane {
 
 // kWG consumer warpgroups (64 queries each) share the ring, so a slice is
 // read once for 64·kWG queries; RR is the list length held in registers
-// (R rounded up to 1, 2, 3, 4, 6, 8).
-template <class L, int kPasses, int NB, int kWG, int RR, int kStages>
+// (R rounded up to 1, 2, 3, 4, 6, 8; 1 for a stage before kPack).
+template <class L, int kPasses, int NB, int kWG, int RR, int kStages, int kStop = kFull>
 __global__ void __launch_bounds__(kWG * kWGThreads + 32, kWG == 1 ? 2 : 1)
 scan_wgmma(__grid_constant__ const CUtensorMap plane, Args a) {
   using P = Plan<kPasses, NB, kWG, kStages>;
-  constexpr bool kBf16 = P::kBf16;
+  constexpr bool kBf16 = P::kBf16, kDirect = P::kDirect;
+  static_assert(kStop == kFull || std::is_same<L, Axis1Keys>::value,
+                "the anatomy stages write raw values (Axis1Keys)");
   constexpr int kConsumers = kWG * kWGThreads;
   // Round the dynamic base up to 1024 by offsetting the shared array itself,
   // so every access below stays a shared-memory access (LDS, not LD).
@@ -490,7 +568,7 @@ scan_wgmma(__grid_constant__ const CUtensorMap plane, Args a) {
   // A warpgroup past B only keeps the ring turning; on an fp32 plane with
   // kWG > 1 it still takes its share of each slice's split (its queries are
   // zero and every key it forms is masked).
-  if (nq <= 0 && (kBf16 || kWG == 1)) {
+  if (nq <= 0 && (kDirect || kWG == 1)) {
     for (int s = 0; s < kSlices; ++s) {
       mbar_wait(full + 8 * (s % kStages), (s / kStages) & 1);
       mbar_arrive(empty + 8 * (s % kStages));
@@ -499,9 +577,19 @@ scan_wgmma(__grid_constant__ const CUtensorMap plane, Args a) {
   }
 
   // Stage this warpgroup's query block (rows past B are zero) as its bf16
-  // parts in the swizzled A layout.
+  // parts in the swizzled A layout (int8 queries: as they are, 128 B a row).
   constexpr int kQPart = kWG * P::kQ;     // from one part to the next
   const int qoff = wg * P::kQ;
+  if constexpr (P::kI8) {
+    const int8_t* q8 = reinterpret_cast<const int8_t*>(a.q);
+    for (int i = t; i < kM * 8; i += kWGThreads) {
+      const int m = i / 8, c = i % 8;
+      const uint4 x =
+          m < nq ? *reinterpret_cast<const uint4*>(q8 + (long long)(q0 + m) * kDim + 16 * c)
+                 : make_uint4(0, 0, 0, 0);
+      *reinterpret_cast<uint4*>(sm + P::q + qoff + swz8(m, c)) = x;
+    }
+  } else
   for (int i = t; i < kM * (kDim / 8); i += kWGThreads) {
     const int m = i / (kDim / 8), k = (i % (kDim / 8)) * 8;
     float x[8];
@@ -555,17 +643,17 @@ scan_wgmma(__grid_constant__ const CUtensorMap plane, Args a) {
 #pragma unroll
     for (int r = 0; r < RR; ++r) top[e][r] = kInfKey;
 
-  float acc[kE];
+  typename std::conditional<P::kI8, int, float>::type acc[kE];
 #pragma unroll
-  for (int e = 0; e < kE; ++e) acc[e] = 0.f;
+  for (int e = 0; e < kE; ++e) acc[e] = 0;
   // query part j at qa + j·kQPart; slice part j at va + j·kV
   const uint32_t qa = base + P::q + qoff, va = base + P::split;
   for (int s = 0; s < kSlices; ++s) {
     const int st = s % kStages;
     unsigned char* stage = sm + P::ring + st * P::kStage;
-    if (!kBf16) consumers_sync<kWG>(wg);   // the last products are done with the parts
+    if (!kDirect) consumers_sync<kWG>(wg);   // the last products are done with the parts
     mbar_wait(full + 8 * st, (s / kStages) & 1);
-    if (!kBf16) {
+    if (!kDirect) {
       // Split the fp32 slice (row-major, 512 B a row) into the swizzled
       // bf16 parts, all consumers sharing the work.
       for (int i = tid; i < NB * (kDim / 8); i += kConsumers) {
@@ -587,6 +675,8 @@ scan_wgmma(__grid_constant__ const CUtensorMap plane, Args a) {
     wgmma_fence();
     if constexpr (kPasses == 1) {
       product<NB, true>(acc, qa, base + P::ring + st * P::kStage);
+    } else if constexpr (kPasses == 0) {
+      product_s8<NB>(acc, qa, base + P::ring + st * P::kStage);
     } else if constexpr (kPasses == 3) {        // qhi·Vhi + qhi·Vlo + qlo·Vhi
       product<NB, true>(acc, qa, va);
       product<NB, false>(acc, qa, va + P::kV);
@@ -613,28 +703,71 @@ scan_wgmma(__grid_constant__ const CUtensorMap plane, Args a) {
     const float* sT = sC + NB;
     const float* sdn = sT + NB;
     const int* soid = reinterpret_cast<const int*>(sdn + NB);
+    if constexpr (kStop == kFull) {
 #pragma unroll
-    for (int j = 0; j < NB / 8; ++j) {
-      const int c0 = 8 * j + 2 * (lane & 3);      // this thread's column pair
-      const float2 C2 = *reinterpret_cast<const float2*>(sC + c0);
-      const float2 T2 = *reinterpret_cast<const float2*>(sT + c0);
-      const float2 dn2 = *reinterpret_cast<const float2*>(sdn + c0);
-      const int2 oid2 = *reinterpret_cast<const int2*>(soid + c0);
-      const bool live[2] = {c0 < lay.nb && oid2.x < a.sn,
-                            c0 + 1 < lay.nb && oid2.y < a.sn};
+      for (int j = 0; j < NB / 8; ++j) {
+        const int c0 = 8 * j + 2 * (lane & 3);      // this thread's column pair
+        const float2 C2 = *reinterpret_cast<const float2*>(sC + c0);
+        const float2 T2 = *reinterpret_cast<const float2*>(sT + c0);
+        const float2 dn2 = *reinterpret_cast<const float2*>(sdn + c0);
+        const int2 oid2 = *reinterpret_cast<const int2*>(soid + c0);
+        const bool live[2] = {c0 < lay.nb && oid2.x < a.sn,
+                              c0 + 1 < lay.nb && oid2.y < a.sn};
 #pragma unroll
-      for (int e = 4 * j; e < 4 * j + 4; ++e) {
-        const int h = e & 1, g = (e >> 1) & 1;
-        const float Cb = h ? C2.y : C2.x, Tb = h ? T2.y : T2.x;
-        const float d = __fadd_rn(__fmaf_rn(-2.f, acc[e], h ? dn2.y : dn2.x), qn[g]);
-        const bool ok = live[h] && Cb >= clo[g] && Cb <= chi[g] && Tb >= tlo[g] &&
-                        Tb <= thi[g];
-        int k = ok ? (max(__float_as_int(d), 0) & kKeyMask) | s : kInfKey;
+        for (int e = 4 * j; e < 4 * j + 4; ++e) {
+          const int h = e & 1, g = (e >> 1) & 1;
+          const float Cb = h ? C2.y : C2.x, Tb = h ? T2.y : T2.x;
+          const float d = __fadd_rn(__fmaf_rn(-2.f, qd_of(acc[e]), h ? dn2.y : dn2.x), qn[g]);
+          const bool ok = live[h] && Cb >= clo[g] && Cb <= chi[g] && Tb >= tlo[g] &&
+                          Tb <= thi[g];
+          int k = ok ? (max(__float_as_int(d), 0) & kKeyMask) | s : kInfKey;
 #pragma unroll
-        for (int r = 0; r < RR; ++r) {     // carry the larger of each pair down
-          const int lo = min(top[e][r], k);
-          k = max(top[e][r], k);
-          top[e][r] = lo;
+          for (int r = 0; r < RR; ++r) {     // carry the larger of each pair down
+            const int lo = min(top[e][r], k);
+            k = max(top[e][r], k);
+            top[e][r] = lo;
+          }
+        }
+      }
+    } else {
+      // The anatomy's earlier stages (Stage): the same values up to where
+      // the stage stops, each kept as the running min of its bits (every
+      // value is ≥ +0.0 from dist on, so the int order is the float order)
+      // or, for kPack, the keys' top R. Columns past nb are never emitted.
+#pragma unroll
+      for (int j = 0; j < NB / 8; ++j) {
+        const int c0 = 8 * j + 2 * (lane & 3);
+        const float2 C2 = *reinterpret_cast<const float2*>(sC + c0);
+        const float2 T2 = *reinterpret_cast<const float2*>(sT + c0);
+        const float2 dn2 = *reinterpret_cast<const float2*>(sdn + c0);
+        const int2 oid2 = *reinterpret_cast<const int2*>(soid + c0);
+#pragma unroll
+        for (int e = 4 * j; e < 4 * j + 4; ++e) {
+          const int h = e & 1, g = (e >> 1) & 1;
+          const float x = qd_of(acc[e]);
+          if constexpr (kStop == kMm || kStop == kMmb) {
+            const float y = kStop == kMmb ? __bfloat162float(__float2bfloat16_rn(x)) : x;
+            top[e][0] = __float_as_int(fminf(__int_as_float(top[e][0]), y));
+          } else {
+            const float d = __fadd_rn(__fmaf_rn(-2.f, x, h ? dn2.y : dn2.x), qn[g]);
+            const int bits = max(__float_as_int(d), 0);
+            if constexpr (kStop == kDist) {
+              top[e][0] = min(top[e][0], bits);
+            } else if constexpr (kStop == kMask) {
+              const float Cb = h ? C2.y : C2.x, Tb = h ? T2.y : T2.x;
+              const bool ok = (h ? oid2.y : oid2.x) < a.sn && Cb >= clo[g] &&
+                              Cb <= chi[g] && Tb >= tlo[g] && Tb <= thi[g];
+              top[e][0] = min(top[e][0], ok ? bits : kInfKey);
+            } else {                          // kPack
+              int k = (bits & kKeyMask) | s;
+#pragma unroll
+              for (int r = 0; r < RR; ++r) {
+                const int lo = min(top[e][r], k);
+                k = max(top[e][r], k);
+                top[e][r] = lo;
+              }
+            }
+          }
         }
       }
     }
@@ -650,29 +783,34 @@ scan_wgmma(__grid_constant__ const CUtensorMap plane, Args a) {
     const int m = 16 * warp + lane / 4 + 8 * ((e >> 1) & 1);
     if (q0 + m >= a.B || c >= lay.nb) continue;
     const long long o = (long long)(q0 + m) * W + lay.col(a, c);
+    if constexpr (kStop >= kPack) {
 #pragma unroll
-    for (int r = 0; r < RR; ++r) {
-      if (r >= a.R) break;
-      lay.emit(a, o + (long long)r * a.bins, c, top[e][r]);
+      for (int r = 0; r < RR; ++r) {
+        if (r >= a.R) break;
+        lay.emit(a, o + (long long)r * a.bins, c, top[e][r]);
+      }
+    } else {      // the min's bits in entry 0, zeros in entries 1..R−1
+      lay.emit(a, o, c, top[e][0]);
+      for (int r = 1; r < a.R; ++r) lay.emit(a, o + (long long)r * a.bins, c, 0);
     }
   }
 }
 
 // Encodes the plane's tensor map and launches one instantiation. Returns a
 // cudaError_t, or −CUresult (< 0) when the map cannot be encoded.
-template <class L, int kPasses, int NB, int kWG, int RR, int kStages>
+template <class L, int kPasses, int NB, int kWG, int RR, int kStages, int kStop = kFull>
 int launch_wgmma(Args a, cudaStream_t stream) {
   using P = Plan<kPasses, NB, kWG, kStages>;
   EncodeTiled enc = encode_fn();
   if (enc == nullptr) return cudaErrorSymbolNotFound;
   CUtensorMap plane;
-  const CUresult res = L::encode(enc, &plane, a, NB, P::kBf16);
+  const CUresult res = L::encode(enc, &plane, a, NB, P::kElem);
   if (res != CUDA_SUCCESS) return -(int)res;
   a.nqb = (a.B + kWG * kM - 1) / (kWG * kM);
   a.nbb = L::bin_blocks(a, NB);
   const long long blocks = L::blocks(a);
   if (blocks > 0x7FFFFFFFLL) return cudaErrorInvalidConfiguration;
-  auto kernel = scan_wgmma<L, kPasses, NB, kWG, RR, kStages>;
+  auto kernel = scan_wgmma<L, kPasses, NB, kWG, RR, kStages, kStop>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, P::smem);
   if (e != cudaSuccess) return e;

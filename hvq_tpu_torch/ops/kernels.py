@@ -102,22 +102,37 @@ def nvcc_path() -> str:
     )
 
 
-def _source_hash() -> str:
+def _jobs(sources) -> list:
+    """(path, extra nvcc flags) of each source: a path, or (path, flags) to
+    compile one file more than once."""
+    return [s if isinstance(s, tuple) else (s, ()) for s in sources]
+
+
+def _source_hash(sources=_SOURCES, headers=_HEADERS) -> str:
+    """The library's key: each file's name and bytes, the flags, and any
+    per-source extra flags."""
+    jobs = _jobs(sources)
     h = hashlib.sha256()
-    for src in (*_SOURCES, *_HEADERS):
+    for src in dict.fromkeys([src for src, _ in jobs] + list(headers)):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
+    for src, flags in jobs:
+        if flags:
+            h.update(f"{src.name} {' '.join(flags)}".encode())
     return h.hexdigest()[:16]
 
 
 def _compile(nvcc: str, tmp: Path, sources=_SOURCES) -> tuple[float, str]:
     """nvcc every source to an object, all at once, then link one library
-    at ``tmp``. Returns (seconds, compiler output)."""
+    at ``tmp``. A source is a path, or (path, extra nvcc flags) to compile
+    one file more than once. Returns (seconds, compiler output)."""
     t0 = time.perf_counter()
-    objs = [tmp.with_name(f"{tmp.stem}.{src.stem}.o") for src in sources]
-    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
-            for src, o in zip(sources, objs)]
+    jobs = _jobs(sources)
+    objs = [tmp.with_name(f"{tmp.stem}.{i}.{src.stem}.o")
+            for i, (src, _) in enumerate(jobs)]
+    cmds = [[nvcc, *NVCC_FLAGS, *flags, "-c", "-o", str(o), str(src)]
+            for (src, flags), o in zip(jobs, objs)]
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for c in cmds]
@@ -140,28 +155,31 @@ def _compile(nvcc: str, tmp: Path, sources=_SOURCES) -> tuple[float, str]:
     return time.perf_counter() - t0, log
 
 
-def build() -> ctypes.CDLL:
-    """Compile (if needed) and load the kernel library; idempotent.
+def build_library(stem: str, sources, entry_points: dict, info: dict) -> ctypes.CDLL:
+    """Compile (if needed) and load the library ``<stem>_<hash>.so`` of
+    ``sources`` in BUILD_DIR, declaring ``entry_points`` (name → argtypes).
+    ``info`` receives the library path, whether this call compiled, the
+    compile seconds and nvcc's ptxas report (registers, spills)."""
+    so = BUILD_DIR / f"{stem}_{_source_hash(sources)}.so"
+    compiled, seconds, log = False, 0.0, ""
+    if not so.exists():
+        nvcc = nvcc_path()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        seconds, log = _compile(nvcc, tmp, sources)
+        os.replace(tmp, so)
+        compiled = True
+    info.update(path=str(so), compiled=compiled, seconds=seconds, log=log)
+    return _load(so, tuple(entry_points), entry_points)
 
-    ``build_info`` records the library path, whether this call compiled,
-    the compile seconds and ``nvcc``'s ptxas report (registers, spills).
-    """
+
+def build() -> ctypes.CDLL:
+    """Compile (if needed) and load the kernel library; idempotent
+    (``build_info`` as :func:`build_library` fills it)."""
     global _lib
     with _lock:
-        if _lib is not None:
-            return _lib
-        so = BUILD_DIR / f"libhvq_kernels_{_source_hash()}.so"
-        compiled, seconds, log = False, 0.0, ""
-        if not so.exists():
-            nvcc = nvcc_path()
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            seconds, log = _compile(nvcc, tmp)
-            os.replace(tmp, so)
-            compiled = True
-        build_info.update(path=str(so), compiled=compiled, seconds=seconds,
-                          log=log)
-        _lib = _load(so)
+        if _lib is None:
+            _lib = build_library("libhvq_kernels", _SOURCES, _ENTRY_POINTS, build_info)
         return _lib
 
 
@@ -184,13 +202,14 @@ _ENTRY_POINTS = {
 }
 
 
-def _load(so: Path, entries=tuple(_ENTRY_POINTS)) -> ctypes.CDLL:
-    """Load a kernel library and declare its C entry points ``entries``."""
+def _load(so: Path, entries=tuple(_ENTRY_POINTS), argtypes=_ENTRY_POINTS) -> ctypes.CDLL:
+    """Load a kernel library and declare its C entry points ``entries``
+    (each returns an int; ``argtypes`` by name)."""
     lib = ctypes.CDLL(str(so))
     for name in entries:
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
-        fn.argtypes = _ENTRY_POINTS[name]
+        fn.argtypes = argtypes[name]
     return lib
 
 
@@ -246,15 +265,21 @@ def _launch(name, device, B, W, qV, active_c, active_t, call):
     at = active_t.to(torch.int32)
     out_d = torch.empty((B, W), dtype=torch.float32, device=device)
     out_i = torch.empty((B, W), dtype=torch.int32, device=device)
+    run(name, device, lambda stream: call(qn.data_ptr(), ac.data_ptr(), at.data_ptr(),
+                                          out_d.data_ptr(), out_i.data_ptr(), stream))
+    launches[name] += 1
+    return out_d, out_i
+
+
+def run(name: str, device, call) -> None:
+    """``call(stream)`` with ``device`` current and its current stream;
+    raises on the C entry's error (a cudaError_t, or −CUresult when a
+    tensor map cannot be encoded)."""
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = call(qn.data_ptr(), ac.data_ptr(), at.data_ptr(),
-                   out_d.data_ptr(), out_i.data_ptr(), stream)
+        err = call(torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: " + (
             f"cudaError {err}" if err > 0 else f"tensor map encode, CUresult {-err}"))
-    launches[name] += 1
-    return out_d, out_i
 
 
 def packed_scan_v3(

@@ -61,6 +61,7 @@ import torch
 
 from hvq_tpu_torch.ops import kernels
 from hvq_tpu_torch.ops.masks import query_predicate_fields
+from hvq_tpu_torch.tools.card import event_ms
 
 _SOID = "    const int* soid = reinterpret_cast<const int*>(sdn + NB);\n"
 _ARRIVE = "    mbar_arrive(empty + 8 * st);\n  }\n"
@@ -184,18 +185,6 @@ def inputs(plane: str, tiles: int, B: int = 1024, seed: int = 1, db_tile: int = 
     return (Vs, C, T, dn, oid, qV, *fields, n_pad)
 
 
-def time_ms(fn, reps: int = 10) -> float:
-    fn()
-    torch.cuda.synchronize()
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
-
-
 def same_bits(a, b) -> bool:
     return all(torch.equal(x.view(torch.int32), y.view(torch.int32))
                for x, y in zip(a, b))
@@ -223,7 +212,7 @@ def lane_shapes(libs: dict) -> dict:
             times = {shape: [] for shape in shapes}
             for shape in rounds(shapes):
                 kernels._lib = libs["base" if shape == "base" else f"lane {shape}"]
-                times[shape].append(time_ms(lambda: fn(*args, **kw)))
+                times[shape].append(event_ms(lambda: fn(*args, **kw), 10))
                 if not same_bits(fn(*args, **kw), want):
                     raise AssertionError(f"{name} R={R}: lane shape {shape} differs")
             res[f"{name} R={R}"] = times
@@ -260,7 +249,7 @@ def ablate(reference: str | None = None) -> dict:
             times = {name: [] for name in k1_libs}
             for name in rounds(k1_libs):
                 kernels._lib = libs[name]
-                times[name].append(time_ms(lambda: kernels.packed_scan_v3(*args, **kw)))
+                times[name].append(event_ms(lambda: kernels.packed_scan_v3(*args, **kw), 10))
             kernels._lib = libs["base"]
             first = kernels.packed_scan_v3(*args, **kw)
             for _ in range(4):

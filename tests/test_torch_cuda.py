@@ -1,5 +1,5 @@
-"""Card-only tests of the port: the CUDA kernels K1–K4 against their plain
-versions, and the batched engine on the card.
+"""Card-only tests of the port: the CUDA kernels K1–K4 and the TPU probe
+kernels against their plain versions, and the engines on the card.
 
 A CUDA kernel has no CPU mode, so every test here is marked ``cuda`` and
 skips where no NVIDIA GPU is present. On a GPU machine with nvcc:
@@ -15,9 +15,10 @@ import pytest
 import torch
 
 from hvq_tpu_torch.models.oracle import search_oracle
-from hvq_tpu_torch.ops import kernels
+from hvq_tpu_torch.ops import kernels, probe_kernels
 from hvq_tpu_torch.ops.masks import query_predicate_fields
 from hvq_tpu_torch.ops.scan import packed_scan_plain
+from hvq_tpu_torch.tools import int8_probe, v3_anatomy
 from hvq_tpu_torch.utils.check import bin_scan_agreement, scan_agreement
 from hvq_tpu_torch.utils.compare import compare_distances, recall_at_k
 from hvq_tpu_torch.utils.formats import recompute_result_distances
@@ -455,3 +456,99 @@ def test_lane_certificate_slack_boundary_stress(cuda, impl, scale):
     body."""
     counts = certificate_stress(cuda, "fp32", scale, scan_impl=impl)
     assert counts["wgmma"] >= 1 and counts["simt"] == 0, counts
+
+
+# ------------------------------------------------------ the TPU probe kernels
+
+def _anatomy_args(device, plane, B=100, n_pad=3 * 1024, seed=51):
+    """Small anatomy inputs on the card: mixed predicates, a sample limit
+    (the last 200 rows) and one bin (bin 3 of tile 1 at Dt 1024) whose rows
+    are all past it; the plane fp32, bf16 or the int8 quantization."""
+    Vf, C, T, dn, oid, qV, *fields = _inputs(device, n_pad=n_pad, B=B, seed=seed)
+    oid = oid.clone()
+    oid[1024 + 8 * torch.arange(128, device=device) + 3] += n_pad
+    Vs = {"fp32": Vf, "bf16": Vf.to(torch.bfloat16),
+          "int8": probe_kernels.quantize_i8(Vf)}[plane]
+    return (Vs, C, T, dn, oid, qV, *fields, n_pad - 200)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plane", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("stage", ["mm", "mmb", "dist", "mask", "pack", "full"])
+@pytest.mark.parametrize("R", [1, 2, 3, 4])
+def test_k1_anatomy_matches_plain(cuda, plane, stage, R):
+    """Every stage on every plane against its plain version (int8 bit for
+    bit), at B = 100 and 1000 (ragged query blocks); then rerun bit for bit."""
+    for B in (100, 1000):
+        args = _anatomy_args(cuda, plane, B=B)
+        v3_anatomy.agreement(stage, plane, R, args, 1024)
+        kw = dict(stage=stage, db_tile=1024, bin_top=R)
+        assert torch.equal(probe_kernels.k1_anatomy(*args, **kw),
+                           probe_kernels.k1_anatomy(*args, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plane", ["fp32", "bf16", "int8"])
+def test_k1_anatomy_full_tiles_and_the_masked_bin(cuda, plane):
+    """Two 16384-row tiles (full 64- or 32-bin CTAs), mm and full; mmc512
+    on the bf16 plane; the all-masked bin's R entries are 0x7F800000."""
+    args = _anatomy_args(cuda, plane, n_pad=2 * 16384)
+    for stage, R in (("mm", 1), ("full", 2)):
+        v3_anatomy.agreement(stage, plane, R, args, 16384)
+    small = _anatomy_args(cuda, plane)
+    if plane == "bf16":
+        v3_anatomy.agreement("mmc512", plane, 1, small, 1024)
+    out = probe_kernels.k1_anatomy(*small, stage="full", db_tile=1024, bin_top=3)
+    assert bool((out[:, 24 + torch.arange(3) * 8 + 3] == 0x7F800000).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", list(probe_kernels.INT8_PROBE_VARIANTS))
+@pytest.mark.parametrize("b,nt,dt", [(100, 2, 1024), (256, 3, 2048), (1000, 2, 1024)])
+def test_int8_probe_matches_plain(cuda, variant, b, nt, dt):
+    """int8 variants bit for bit, bf16 within the fp32 summation slack; B
+    past one 256-query CTA and ragged blocks; reruns bit for bit."""
+    data = int8_probe.inputs(seed=b, b=b, dt=dt, nt=nt, sets=1)
+    qs, d = int8_probe.operands(data, variant)
+    int8_probe.agreement(variant, qs[0], d)
+
+
+@pytest.mark.cuda
+def test_trivial_is_twice_x_bit_for_bit(cuda):
+    for shape in ((256, 128), (1001,)):
+        x = torch.randn(shape, device=cuda)
+        assert torch.equal(probe_kernels.trivial(x).view(torch.int32),
+                           (x * 2).view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_probe_library_builds_apart_from_the_engines_library(cuda):
+    """The probe kernels build into their own library; the engines'
+    library keeps its sources and hash."""
+    main_hash = kernels._source_hash()
+    probe_kernels.build()
+    kernels.build()
+    assert kernels._source_hash() == main_hash
+    assert main_hash in kernels.build_info["path"]
+    assert probe_kernels.build_info["path"] != kernels.build_info["path"]
+    assert not {p.name for p in kernels._SOURCES} & {"probes.cu", "k1_anatomy.cu"}
+
+
+@pytest.mark.cuda
+def test_probe_wrappers_count_their_launches_and_raise(cuda):
+    probe_kernels.reset_launches()
+    args = _anatomy_args(cuda, "int8")
+    probe_kernels.k1_anatomy(*args, stage="pack", db_tile=1024, bin_top=2)
+    data = int8_probe.inputs(seed=1, b=64, dt=1024, nt=2, sets=1)
+    q, d = data["int8"][0][0], data["int8"][1]
+    probe_kernels.int8_probe(q, d, "int8->i32")
+    probe_kernels.int8_probe(q, d, "int8->i32", product=False)
+    probe_kernels.trivial(torch.ones(8, device=cuda))
+    probe_kernels.k1_anatomy_plain(*args, stage="pack", db_tile=1024, bin_top=2)
+    assert dict(probe_kernels.launches) == {
+        "k1_anatomy int8 pack R2": 1, "int8_probe int8->i32": 1,
+        "int8_probe int8->i32 transpose only": 1, "trivial": 1}
+    with pytest.raises(ValueError):
+        probe_kernels.int8_probe(q, d[:, :, :512], "int8->i32")   # not contiguous
+    with pytest.raises(ValueError):
+        probe_kernels.trivial(torch.ones(8, device=cuda, dtype=torch.float64))

@@ -7,6 +7,7 @@ and hvq_tpu loaded already (tests/conftest.py).
 
 import inspect
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -17,11 +18,11 @@ import torch
 
 REPO = Path(__file__).resolve().parent.parent
 
-# Printed by a fresh interpreter: every loaded module of jax or of the JAX
-# package (hvq_tpu, not hvq_tpu_torch).
+# Printed by a fresh interpreter: every loaded module of jax, of the JAX
+# package (hvq_tpu, not hvq_tpu_torch) or of its TPU scripts (experiments).
 _FOREIGN = (
-    "print(sorted(m for m in sys.modules if m in ('jax', 'hvq_tpu')\n"
-    "             or m.startswith(('jax.', 'hvq_tpu.'))))\n"
+    "print(sorted(m for m in sys.modules if m in ('jax', 'hvq_tpu', 'experiments')\n"
+    "             or m.startswith(('jax.', 'hvq_tpu.', 'experiments.'))))\n"
 )
 
 
@@ -96,6 +97,17 @@ def test_port_imports_nothing_of_the_jax_package():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_port_sources_name_no_jax_no_jax_package_no_experiments():
+    """No import statement of the port or of chip_smoke.py, at any depth
+    (a function-level import the interpreter test would not reach too),
+    names jax, hvq_tpu or experiments."""
+    foreign = re.compile(r"^\s*(from|import)\s+(jax|hvq_tpu|experiments)(\.|\s|$)", re.M)
+    files = sorted((REPO / "hvq_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 20
+    for f in files:
+        assert not foreign.search(f.read_text()), f
 
 
 def _tiny_ds():
