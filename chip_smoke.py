@@ -17,20 +17,23 @@ Phases, in order; any failure exits non-zero with a traceback:
    a sample limit; K3 and K2 over R (the tensor-core body for R ≤ 8, the
    CUDA-core body above) and tiles with a sample limit, a permuted ``oid``,
    B = 1000 queries (a ragged last query block) at 8-bin tiles, and
-   data in lanes 112–127 (the product's 8th k-step); K4 over R
-   and tiles, a permuted ``oid`` and a predicate that empties whole bins
-   (padding ids);
-3b. certificate error: the kept distances of K1 (both planes) and of K3
-   and K2 (their main-path shape, Dt = 8192, R = 4), at unit and
-   adversarial norms (the scale-4096 layout of the certificate stress
-   test), against their true values in fp64, as a share of the
-   certificate's slack ``rel_mm·(‖q‖² + max‖d‖²)`` (must stay ≤ 0.5);
-3c. determinism: K1, K3 and K2 five times on the same inputs: K1 over
+   data in lanes 112–127 (the product's 8th k-step); K4 the same way
+   (its tensor-core body for R ≤ 8, R = 16 on its CUDA-core body) and
+   over tiles, a permuted ``oid``, a predicate that empties whole bins
+   (padding ids), negative scores and rows that tie bit for bit (the
+   lowest lanes kept); every lane kernel's launches counted per body;
+3b. certificate error: the kept distances of K1 (both planes), of K3
+   and K2 (their main-path shape, Dt = 8192, R = 4) and of K4 (score +
+   ‖q‖², Dt = 2048, R = 2), at unit and adversarial norms (the
+   scale-4096 layout of the certificate stress test), against their true
+   values in fp64, as a share of the certificate's slack
+   ``rel_mm·(‖q‖² + max‖d‖²)`` (must stay ≤ 0.5);
+3c. determinism: K1, K3, K2 and K4 five times on the same inputs: K1 over
    both planes, R of both bodies, 8 main-path tiles and 8-bin tiles, with
-   CTAs enough for two an SM; K3 and K2 at B = 1024 over 8 tiles of 8192
-   rows at R 1–4 and 8, 8-bin tiles at R 3 and one R = 32 case on the
-   CUDA-core body; the outputs must be bit-identical (every kernel is also
-   rerun and held bit for bit at its main-path shape in phases 4–7);
+   CTAs enough for two an SM; K3, K2 and K4 at B = 1024 over 8 tiles of
+   8192 rows at R 1–4 and 8, 8-bin tiles at R 3 and one R = 32 case on
+   the CUDA-core body; the outputs must be bit-identical (every kernel is
+   also rerun and held bit for bit at its main-path shape in phases 4–7);
 3d. the TPU probe kernels (the three Pallas kernels of ``experiments/``,
    each driven by its tool, ``hvq_tpu_torch/tools/``): every variant
    against its plain version on small cases (the K1 anatomy's six stages
@@ -45,8 +48,10 @@ Phases, in order; any failure exits non-zero with a traceback:
    cuts of K1 on the bf16 plane, the four
    int8-probe variants with the int8 transpose alone and the product-only
    yardsticks ``torch.matmul`` / ``torch._int_mm``, ``_trivial`` beside
-   ``x * 2``), each beside its bound and its plain version's time. int8
-   variants must equal their plain versions bit for bit;
+   ``x * 2`` by CUDA events, by the host clock over 10⁴ calls with each
+   step of the launch path, and by the profiler's kernel durations), each
+   beside its bound and its plain version's time. int8 variants must
+   equal their plain versions bit for bit;
 4. main paths at D=10⁶ rows: one dataset, its 64-query oracle answer and
    the streaming exact path's answer for all 10⁴ mixed queries, computed
    once; then the batched engine with K1 (``scan_impl="v3"``, fp32 plane),
@@ -54,7 +59,10 @@ Phases, in order; any failure exits non-zero with a traceback:
    launch counts, ladder, fenced phases and its kernel timed beside its
    plain version at the main-path shape;
 5. K4 at B=1024 over the same rows (Dt=2048, R=2, its own defaults): K4
-   has no engine, so this call is its path; timed beside its plain version;
+   has no engine, so this call is its path: one launch, on the
+   tensor-core body, held to its plain version and rerun twice bit for
+   bit; timed beside its plain version, its bound and the six passes'
+   product alone;
 6. main path at D=10⁷ rows, bf16 scan plane, through K1: the same checks;
 7. the partitioned engine over phase 6's rows (bf16 plane) and 4·10⁴
    mixed queries (phase 6's 10⁴, then 3·10⁴ more): K1 held to its plain
@@ -65,13 +73,13 @@ Phases, in order; any failure exits non-zero with a traceback:
    queries, and every query within 0.002 of the batched K1 engine.
 
 Each path runs with the launch counts set to 0 just before it and read
-just after; the launches of K1, K3 and K2 are also counted per body, and
-every launch of theirs on a main path must run the tensor-core body. K1
-is timed at its three main-path shapes (D=10⁶ fp32, D=10⁷ bf16, the
-partitioned window), K3 and K2 at theirs (D=10⁶, Dt=8192, R=4), each
-beside its bound, its plain version and ``torch.matmul`` of the same bf16
-passes alone (product only: not the same function, and the port never
-calls it). The last three lines are the card (``nvidia-smi`` name, power
+just after; the launches of K1, K3, K2 and K4 are also counted per body,
+and every launch of theirs on a main path must run the tensor-core body.
+K1 is timed at its three main-path shapes (D=10⁶ fp32, D=10⁷ bf16, the
+partitioned window), K3 and K2 at theirs (D=10⁶, Dt=8192, R=4), K4 at
+its own, each beside its bound, its plain version and ``torch.matmul``
+of the same bf16 passes alone (product only: not the same function, and
+the port never calls it). The last three lines are the card (``nvidia-smi`` name, power
 limit), a JSON object describing each kernel (K1–K4, then each probe
 kernel and variant, whose launches are those of phase 3d's timing runs)
 with its time, bound and launches, and ``{"ok": true, "device": {...}}``.
@@ -241,23 +249,35 @@ def k1_vs_plain() -> float:
     return worst
 
 
+def certificate_ratio(dist, true, qn, dn_max: float, rel_mm: float,
+                      packed: bool = True) -> float:
+    """The largest share of the certificate's slack that kept distances use:
+
+        max (|dist − true| − [packed] 2⁻¹⁶·true) / (rel_mm·(‖q‖² + max‖d‖²))
+
+    over fp64 tensors of the kept distances, their true values and each
+    entry's ‖q‖². A packed key's own truncation (2⁻¹⁶·true) is netted out;
+    K4's unpacked score s has none, and its distance is s + ‖q‖²."""
+    err = (dist - true).abs()
+    if packed:
+        err = err - 2.0 ** -16 * true
+    return float((err / (rel_mm * (qn + dn_max))).max())
+
+
 def certificate_error(name: str = "packed_scan_v3", Dt: int = 16384, R: int = 3,
                       planes=("fp32", "bf16")) -> dict:
-    """Phase 3b: how much of the certificate's slack a packed scan's
-    arithmetic uses.
+    """Phase 3b: how much of the certificate's slack a scan's arithmetic
+    uses.
 
     For each plane, at unit scale and at the adversarial norms of the
     certificate stress test (data and queries × 64 and × 4096, 64 rows on a
     near-exact sphere around query 0), every finite distance the kernel
-    keeps (K1 at Dt = 16384, R = 3; K3 and K2 at their Dt = 8192, R = 4) is
-    held against its true value in fp64 from the fp32 data:
-
-        max (|key_d − true_d| − 2⁻¹⁶·true_d) / (rel_mm·(‖q‖² + max‖d‖²))
-
-    (2⁻¹⁶·true_d is the key's own truncation; rel_mm is _CERT_REL_MM on the
-    fp32 plane, _CERT_REL_MM_BF16 on the bf16 plane, the slack the engines
-    certify with). The constants assume a worst-order fp32 sum with about
-    2× margin; the ratio must stay ≤ 0.5.
+    keeps (K1 at Dt = 16384, R = 3; K3 and K2 at their Dt = 8192, R = 4; K4
+    at its Dt = 2048, R = 2, score + ‖q‖² in fp64) is held against its true
+    value in fp64 from the fp32 data by :func:`certificate_ratio` (rel_mm
+    is _CERT_REL_MM on the fp32 plane, _CERT_REL_MM_BF16 on the bf16 plane,
+    the slack the engines certify with). The constants assume a
+    worst-order fp32 sum with about 2× margin; the ratio must stay ≤ 0.5.
     """
     n_pad, B = 8 * 16384, 256
     rng = np.random.default_rng(33)
@@ -290,15 +310,15 @@ def certificate_error(name: str = "packed_scan_v3", Dt: int = 16384, R: int = 3,
             for c in range(0, rows.numel(), 1 << 22):
                 sl = slice(c, c + (1 << 22))
                 true[sl] = ((q64[qi[sl]] - V64[rows[sl]]) ** 2).sum(1)
-            qn = (q64 * q64).sum(1)
-            slack = rel_mm * (qn[qi] + float(dn.max()))
-            err = (d[fin].double() - true).abs() - 2.0 ** -16 * true
-            ratio = float((err / slack).max())
+            qn = (q64 * q64).sum(1)[qi]
+            packed = name != "bin_scan"
+            dist = d[fin].double() + (0.0 if packed else qn)
+            ratio = certificate_ratio(dist, true, qn, float(dn.max()), rel_mm, packed)
             log(f"  {name} certificate error [{plane} scale={scale:g}]: ratio={ratio:.4g} "
-                f"max|Δ|={float((d[fin].double() - true).abs().max()):.4g} "
+                f"max|Δ|={float((dist - true).abs().max()):.4g} "
                 f"entries={int(fin.sum())}")
             worst.append(ratio)
-            del Vf, Vs, dn, args, d, p, fin, qi, rows, q64, V64, true, err
+            del Vf, Vs, dn, args, d, p, fin, qi, rows, q64, V64, true, dist
         out[plane] = max(worst)
         assert out[plane] <= 0.5, (name, plane, worst)
     torch.cuda.empty_cache()
@@ -346,13 +366,18 @@ def determinism(name: str = "packed_scan_v3", runs: int = 5) -> int:
 
 
 def lane_vs_plain() -> dict:
-    """Phase 3, K3/K2/K4: R, tiles, sample limits, permuted oid, emptied bins."""
+    """Phase 3, K3/K2/K4: R over both bodies, tiles, sample limits, permuted
+    oid, ragged query blocks, lanes 112-127; for K4 also emptied bins,
+    negative scores and exact ties. Every launch is counted per body."""
     rng, Vf, C, T, dn, qV, (qtype, v, l, r) = small_problem(6)
     n_pad = Vf.shape[0]
     args = scan_inputs(Vf, C, T, dn, qV, qtype, v, l, r)
     perm = rng.permutation(n_pad)
     args_perm = scan_inputs(Vf, C, T, dn, qV, qtype, v, l, r, oid=perm)
-    worst = dict.fromkeys(("packed_scan", "packed_scan_v2", "bin_scan"), 0.0)
+    names = ("packed_scan", "packed_scan_v2", "bin_scan")
+    worst = dict.fromkeys(names, 0.0)
+    bodies = {name: {"wgmma": 0, "simt": 0} for name in names}
+    kernels.reset_launches()
 
     def case(name, a, sn, db_tile, R, tag=""):
         agree, got = compare_once(name, a, sn, db_tile, R)
@@ -360,6 +385,7 @@ def lane_vs_plain() -> dict:
             f"max_abs_err={agree['max_abs_err']:.3g} tol_ratio={agree['tol_ratio']:.3g} "
             f"same_pos={agree['same_pos']:.6f} finite={agree['n_finite']}")
         worst[name] = max(worst[name], agree["max_abs_err"])
+        bodies[name]["wgmma" if R <= 8 else "simt"] += 1
         return got
 
     # B = 1000: query blocks of 64 with a ragged last one; 8-bin tiles, so a
@@ -388,8 +414,13 @@ def lane_vs_plain() -> dict:
         for R in (1, 4):
             case(name, args_high, 60000, 1024, R, " lanes 112-127 in use")
     for db_tile in (128, 2048, 8192):
-        for R in (1, 2, 3, 8):
+        for R in (1, 2, 3, 4, 8):
             case("bin_scan", args, 60000, db_tile, R)
+    case("bin_scan", args, 60000, 2048, 16)
+    for R in (3, 8):
+        case("bin_scan", args_1000, 60000, 1024, R, " B=1000")
+    for R in (1, 4):
+        case("bin_scan", args_high, 60000, 1024, R, " lanes 112-127 in use")
     s, i = case("bin_scan", args_perm, 30000, 2048, 3, " oid permuted")
     assert bool((i[torch.isfinite(s)] < 30000).all())
     # T constant per bin, every query a type-2 range over a tenth of the bin
@@ -406,6 +437,29 @@ def lane_vs_plain() -> dict:
     pad = ~torch.isfinite(s)
     assert bool(pad.any())
     assert torch.equal(i[pad], args_bins[4][row0.expand_as(s)[pad]])
+    # queries × 3: many kept scores are negative (no ‖q‖², no clamp)
+    args_neg = scan_inputs(Vf, C, T, dn, qV * 3, qtype, v, l, r)
+    for R in (2, 16):
+        s, _ = case("bin_scan", args_neg, 60000, 2048, R, " queries x3")
+        assert bool((s < 0).any()), R
+    # every bin's lanes 5, 9, 40 and 70 hold query 0: its four scores there
+    # tie bit for bit, and the kept ids are those lanes in order
+    lanes = [5, 9, 40, 70]
+    V_tie = Vf.clone().view(-1, 128, 128)
+    V_tie[:, lanes] = torch.from_numpy(qV[0]).to(DEV)
+    V_tie = V_tie.view(n_pad, 128)
+    zeros = np.zeros(B)
+    args_tie = scan_inputs(V_tie, C, T, (V_tie * V_tie).sum(1), qV, zeros, zeros, zeros, zeros)
+    g = torch.arange(n_pad // 128, device=DEV).view(-1, 16)
+    for R in (3, 4, 16):
+        s, i = case("bin_scan", args_tie, n_pad, 2048, R, " exact ties")
+        s0, i0 = s[0].view(-1, R, 16), i[0].view(-1, R, 16)
+        for j, lane in enumerate(lanes[:R]):
+            assert torch.equal(i0[:, j], (g * 128 + lane).int()), (R, j)
+            assert torch.equal(s0[:, j].view(torch.int32), s0[:, 0].view(torch.int32)), (R, j)
+        assert bool((s0[:, 0] < 0).all())
+    assert kernels.lane_body_launches == bodies, (kernels.lane_body_launches, bodies)
+    log(f"  lane kernels' launches by body: {bodies}")
     return worst
 
 
@@ -534,8 +588,10 @@ def probe_phase(library_path: str) -> list:
     line's entries of the probe kernels."""
     worst = anatomy_small()
     worst.update(int8_probe_small())
-    x = torch.randn(1001, device=DEV)
-    assert torch.equal(probe_kernels.trivial(x), x * 2)
+    # odd sizes (a scalar tail after the 16-byte body) and a view 4 bytes
+    # off alignment (the one-value-a-thread kernel)
+    for x in (torch.randn(1001, device=DEV), torch.randn(1003, device=DEV)[1:]):
+        assert torch.equal(probe_kernels.trivial(x).view(torch.int32), (x * 2).view(torch.int32))
     worst["trivial"] = pallas_probe.trivial_check()["max_abs_err"]
 
     anat = v3_anatomy.inputs()
@@ -559,7 +615,15 @@ def probe_phase(library_path: str) -> list:
     log(f"  probe launches in the timing runs: {counts}")
     del anat, i8
     torch.cuda.empty_cache()
+    return probe_entries(t_anat, t_i8, t_triv, k3, counts, worst, library_path)
 
+
+def probe_entries(t_anat: dict, t_i8: dict, t_triv: dict, k3: dict, counts: dict,
+                  worst: dict, library_path: str) -> list:
+    """The kernels line's entries of the probe kernels from the tools'
+    timing runs (``v3_anatomy.measure``, ``int8_probe.measure``,
+    ``pallas_probe.trivial_time``), their launch counts in those runs and
+    the small cases' worst errors."""
     def entry(name, source, replaces, r, **extra):
         assert counts.get(name, 0) >= 1, (name, counts)
         return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -578,8 +642,15 @@ def probe_phase(library_path: str) -> list:
                              r, library_ms=None, product_only_ms=r["product_only_ms"],
                              **({"transpose_only_ms": r["transpose_only_ms"]}
                                 if "transpose_only_ms" in r else {})))
+    # ms / library_ms: CUDA events; host_us: the host clock, µs a call (the
+    # launch path's steps in launch_path_us); device_ms: the profiler's
+    # kernel duration
     entries.append(entry("trivial", pallas_probe.SOURCE, pallas_probe.REPLACES, t_triv,
-                         library_ms=t_triv["library_ms"], k3_check=k3))
+                         library_ms=t_triv["library_ms"], device_ms=t_triv["device_ms"],
+                         host_us=t_triv["host_us"],
+                         library_device_ms=t_triv["library_device_ms"],
+                         library_host_us=t_triv["library_host_us"],
+                         launch_path_us=t_triv["launch_path_us"], k3_check=k3))
     return entries
 
 
@@ -746,8 +817,11 @@ def run_engine(tag, eng, ds, qs, ref, seed) -> dict:
 
 def k4_path(tag, db, qs) -> dict:
     """K4 at B=1024 over the database's rows with its own defaults (Dt=2048,
-    R=2): one counted call, held to its plain version, then both timed."""
+    R=2): one counted call, on the tensor-core body, held to its plain
+    version and rerun twice bit for bit, then timed beside its plain
+    version, its bound and the six bf16 passes' product alone."""
     B, R, Dt = 1024, 2, 2048
+    name = "bin_scan"
     qV, fields = first_batch(qs, B)
     pos = torch.arange(db.n_pad, dtype=torch.int32, device=DEV)
     args = (db.Vp, db.C, db.T, db.d_norms, pos, qV, *fields, db.n)
@@ -755,19 +829,27 @@ def k4_path(tag, db, qs) -> dict:
     kernels.reset_launches()
     got = kernels.bin_scan(*args, **kw)
     torch.cuda.synchronize()
-    launches = kernels.launches["bin_scan"]
-    want = kernels.plain["bin_scan"](*args, **kw)
+    launches = kernels.launches[name]
+    bodies = dict(kernels.lane_body_launches[name])
+    want = kernels.plain[name](*args, **kw)
     agree = bin_scan_agreement(*got, *want, R, Dt // 128, (qV * qV).sum(1),
                                float(db.d_norms.max()), batched._CERT_REL_MM)
-    del got, want
-    log(f"[{tag}] bin_scan vs plain at B={B}: {agree}")
+    del want
+    log(f"[{tag}] {name} vs plain at B={B}: {agree}; launches {launches}, bodies {bodies}")
     assert agree["ok"] and launches == 1, (agree, launches)
+    assert bodies == {"wgmma": 1, "simt": 0}, bodies
+    for _ in range(2):
+        assert same_bits(got, kernels.bin_scan(*args, **kw)), f"{name} rerun differs"
+    del got
+    log(f"[{tag}] {name} rerun twice: bit-identical")
     ms = event_ms(lambda: kernels.bin_scan(*args, **kw), 10)
-    plain_ms = event_ms(lambda: kernels.plain["bin_scan"](*args, **kw), 10)
-    bnd = lane_bound("bin_scan", db.n_pad, B, db.n_pad * R // 128)
-    log(f"[{tag}] bin_scan {ms:.3f} ms/call, plain {plain_ms:.3f} ms/call, {bnd} "
+    plain_ms = event_ms(lambda: kernels.plain[name](*args, **kw), 10)
+    bnd = lane_bound(name, db.n_pad, B, db.n_pad * R // 128)
+    bnd["product_only_matmul_ms"] = product_only_ms(db.Vp, qV, 0, db.n_pad,
+                                                    LANE_PASSES[name])
+    log(f"[{tag}] {name} {ms:.3f} ms/call, plain {plain_ms:.3f} ms/call, {bnd} "
         f"(B={B}, Dt={Dt}, R={R}, n_pad={db.n_pad})")
-    return dict(ms=ms, plain_ms=plain_ms, **bnd, launches=launches,
+    return dict(ms=ms, plain_ms=plain_ms, **bnd, launches=launches, bodies=bodies,
                 max_abs_err=agree["max_abs_err"])
 
 
@@ -912,6 +994,59 @@ def path_partitioned(reused, seed: int = workload.PARTITIONED_SEED) -> dict:
                 max_abs_err=win["max_abs_err"])
 
 
+def kernel_entries(r6: dict, r7: dict, r8: dict, worst: dict, cert: dict,
+                   deterministic: dict, library: str) -> list:
+    """The kernels line's entries of K1–K4 from the main paths' results
+    (phases 4–7), phase 3's worst errors, phase 3b's certificate ratios and
+    phase 3c's deterministic cases."""
+    paths = [r6["v3"], r6["v1"], r6["v2"], r7, r8]
+    timing = ("ms", "plain_ms", "bound_ms", "bound_by", "product_only_matmul_ms")
+    entries = []
+    for name, impl in (("packed_scan_v3", "v3"), ("packed_scan", "v1"),
+                       ("packed_scan_v2", "v2"), ("bin_scan", None)):
+        e = dict(name=name, route="cuda", **KERNELS[name], library=library)
+        if impl is None:
+            # ms / plain_ms / bound_ms: K4's own path, phase 5 (Dt=2048, R=2)
+            r = r6["k4"]
+            e.update(launches=r["launches"], bodies=r["bodies"],
+                     max_abs_err=max(worst[name], r["max_abs_err"]),
+                     ms=r["ms"], plain_ms=r["plain_ms"])
+        else:
+            r = r6[impl]
+            e.update(launches=sum(p["launches"][name] for p in paths),
+                     max_abs_err=max(worst[name], r["max_abs_err"]),
+                     ms=r["ms"], plain_ms=r["plain_ms"], qps=r["qps"])
+        # no single PyTorch call computes a masked, bin-wise top-R
+        e.update(bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
+                 certificate_error_ratio=cert[name],
+                 deterministic_cases=deterministic[name],
+                 product_only_matmul_ms=r["product_only_matmul_ms"])
+        if "bound_fp32_simt_ms" in r:
+            e.update(bound_fp32_simt_ms=r["bound_fp32_simt_ms"])
+        if impl is not None and name in kernels.lane_body_launches:
+            # ms / plain_ms / qps / bound_ms: the D=10⁶ lane path (Dt=8192, R=4)
+            e.update(bodies={b: sum(p["lane_bodies"][name][b] for p in paths)
+                             for b in ("wgmma", "simt")})
+        if name == "packed_scan_v3":
+            # ms / plain_ms / qps / bound_ms: the D=10⁶ fp32 batched path
+            e.update(max_abs_err=max(e["max_abs_err"], r7["max_abs_err"],
+                                     r8["max_abs_err"]),
+                     ms_d1e7_bf16=r7["ms"], plain_ms_d1e7_bf16=r7["plain_ms"],
+                     qps_d1e7=r7["qps"],
+                     ms_window_d1e7_bf16=r8["window"]["ms"],
+                     plain_ms_window_d1e7_bf16=r8["window"]["plain_ms"],
+                     qps_partitioned_d1e7=r8["qps"],
+                     bodies={b: sum(p["bodies"][b] for p in paths)
+                             for b in ("wgmma", "simt")},
+                     shapes={
+                         "d1e6_fp32": {k: r6["v3"][k] for k in timing},
+                         "d1e7_bf16": {k: r7[k] for k in timing},
+                         "window_d1e7_bf16": {k: r8["window"][k] for k in timing},
+                     })
+        entries.append(e)
+    return entries
+
+
 def main() -> int:
     card = probe()
     build()
@@ -922,9 +1057,9 @@ def main() -> int:
     cert = {"packed_scan_v3": certificate_error()}
     for name in ("packed_scan", "packed_scan_v2"):
         cert[name] = certificate_error(name, 8192, 4, planes=("fp32",))
+    cert["bin_scan"] = certificate_error("bin_scan", 2048, 2, planes=("fp32",))
     log(f"certificate error, share of the slack used (≤ 0.5): {cert}")
-    deterministic = {name: determinism(name)
-                     for name in ("packed_scan_v3", "packed_scan", "packed_scan_v2")}
+    deterministic = {name: determinism(name) for name in kernels.launches}
     log("TPU probe kernels (phase 3d):")
     probes = probe_phase(os.path.basename(probe_kernels.build_info["path"]))
     r6 = paths_d1e6()
@@ -933,54 +1068,7 @@ def main() -> int:
     r8 = path_partitioned(reused)
     del reused
     library = os.path.basename(kernels.build_info["path"])
-    paths = [r6["v3"], r6["v1"], r6["v2"], r7, r8]
-    timing = ("ms", "plain_ms", "bound_ms", "bound_by", "product_only_matmul_ms")
-    entries = []
-    for name, impl in (("packed_scan_v3", "v3"), ("packed_scan", "v1"),
-                       ("packed_scan_v2", "v2"), ("bin_scan", None)):
-        e = dict(name=name, route="cuda", **KERNELS[name], library=library)
-        if impl is None:
-            r = r6["k4"]
-            e.update(launches=r["launches"],
-                     max_abs_err=max(worst[name], r["max_abs_err"]),
-                     ms=r["ms"], plain_ms=r["plain_ms"])
-        else:
-            r = r6[impl]
-            e.update(launches=sum(p["launches"][name] for p in paths),
-                     max_abs_err=max(worst[name], r["max_abs_err"]),
-                     ms=r["ms"], plain_ms=r["plain_ms"], qps=r["qps"])
-        # no single PyTorch call computes a masked, bin-wise packed-key top-R
-        e.update(bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None)
-        if "bound_fp32_simt_ms" in r:
-            e.update(bound_fp32_simt_ms=r["bound_fp32_simt_ms"])
-        if name in kernels.lane_body_launches:
-            # ms / plain_ms / qps / bound_ms: the D=10⁶ lane path (Dt=8192, R=4)
-            e.update(bodies={b: sum(p["lane_bodies"][name][b] for p in paths)
-                             for b in ("wgmma", "simt")},
-                     certificate_error_ratio=cert[name],
-                     deterministic_cases=deterministic[name],
-                     product_only_matmul_ms=r["product_only_matmul_ms"])
-        if name == "packed_scan_v3":
-            # ms / plain_ms / qps / bound_ms: the D=10⁶ fp32 batched path
-            e.update(max_abs_err=max(e["max_abs_err"], r7["max_abs_err"],
-                                     r8["max_abs_err"]),
-                     ms_d1e7_bf16=r7["ms"], plain_ms_d1e7_bf16=r7["plain_ms"],
-                     qps_d1e7=r7["qps"],
-                     ms_window_d1e7_bf16=r8["window"]["ms"],
-                     plain_ms_window_d1e7_bf16=r8["window"]["plain_ms"],
-                     qps_partitioned_d1e7=r8["qps"],
-                     product_only_matmul_ms=r["product_only_matmul_ms"],
-                     bodies={b: sum(p["bodies"][b] for p in paths)
-                             for b in ("wgmma", "simt")},
-                     certificate_error_ratio=cert[name],
-                     deterministic_cases=deterministic[name],
-                     shapes={
-                         "d1e6_fp32": {k: r6["v3"][k] for k in timing},
-                         "d1e7_bf16": {k: r7[k] for k in timing},
-                         "window_d1e7_bf16": {k: r8["window"][k] for k in timing},
-                     })
-        entries.append(e)
-    entries += probes
+    entries = kernel_entries(r6, r7, r8, worst, cert, deterministic, library) + probes
     log(card)
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {

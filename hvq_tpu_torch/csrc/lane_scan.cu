@@ -23,41 +23,44 @@
 // decoded:
 //   dist[q, tile·R·bins + j·bins + b] = key & ~0x7F   (as fp32)
 //   pos [q, same column]              = tile·Dt + b·128 + (key & 0x7F)
-// K4 is unpacked: score = ‖d‖² − 2·q·d in fp32 FMAs, with no ‖q‖² and no
-// clamp (scores may be negative), +inf where masked. A bin keeps its R
-// smallest (score, lane) pairs, ties to the lowest lane (argmin's first
-// occurrence), padded with (+inf, lane 0) as argmin over an all-+inf bin
-// gives, and reports (score, oid[row]).
+// K4 is unpacked: score = ‖d‖² − 2·q·d, with no ‖q‖² and no clamp (scores
+// may be negative), +inf where masked, q·d at Precision.HIGHEST
+// (pallas_scan.py:124-128), which Mosaic runs as the 6-pass bf16 emulation
+// of fp32, as K3's. A bin keeps its R smallest (score, lane) pairs, ties to
+// the lowest lane (argmin's first occurrence), padded with (+inf, lane 0) as
+// argmin over an all-+inf bin gives, and reports (score, oid[row]); −0.0 is
+// written as +0.0.
 //
 // What bounds them on this card: at the main-path batch (B = 1024) the
 // product, not HBM: six bf16 passes for K3 and K4, three for K2, on the
 // tensor cores (2·B·n·100 FLOP a pass).
 //
-// Two bodies, chosen by mode and R (dispatch on shape, not a fallback):
+// Two bodies, chosen by R (dispatch on shape, not a fallback):
 //
-// * wgmma (K3 and K2 at R ≤ 8: the lane paths' R = 4 and the lane rung 1 at
-//   2R = 8): scan_wgmma.cuh's body, K1's, in the Lane layout. A CTA owns
+// * wgmma (R ≤ 8: the lane paths' R = 4, the lane rung 1 at 2R = 8, K4's
+//   own R = 2): scan_wgmma.cuh's body, K1's, in the Lane layout. A CTA owns
 //   (128 queries in two warpgroups × 32 consecutive global bins g0 …),
 //   which may span tiles; slice s is row g·128 + s of each bin, one box of
 //   a 3-D tensor map over the plane, (128 lanes, 128 slices, nbins), loaded
 //   at (0, s, g0); C, T, ‖d‖² and oid come by cp.async on the slice's
 //   mbarrier. Both warpgroups split the fp32 slice in shared memory into 3
-//   (K3) or 2 (K2) swizzled bf16 parts, each its query block once; K3
-//   chains its six products smallest first,
+//   (K3, K4) or 2 (K2) swizzled bf16 parts, each its query block once; K3
+//   and K4 chain their six products smallest first,
 //   ql·Vh + qm·Vm + qh·Vl + qm·Vh + qh·Vm + qh·Vh, K2 its three, into one
-//   fp32 accumulator; the epilogue and the register top-R are K1's.
-// * simt (K3 and K2 at R > 8, K4 at every R): the CUDA-core structure of
-//   the first port. A CTA owns (query block of QB, 64 consecutive global
-//   bins) and streams the 128 slices, each staged transposed in shared
-//   memory; each thread holds a 4×4 register tile of (query, bin) dot
-//   products in IEEE fp32 FMAs (K2: three accumulators of the bf16 split,
-//   hi/lo packed in one staged word) and a running top-R per (query, bin);
-//   keys are distinct through the lane, or for K4 ordered by (score, lane)
-//   with the lanes arriving in increasing order, so the running top-R
-//   equals R min (argmin) rounds bit for bit, padding included. K4 keeps
-//   R ≤ 2 in registers (64-bit keys); any other list lives in shared
-//   memory (K4: a 32-bit ordered score and an 8-bit lane, 5 bytes an
-//   entry) and the launcher halves QB until the lists fit.
+//   fp32 accumulator; the epilogue and the register top-R are K1's, K4's
+//   with its own key policy (BinKey: an (fp32 score, lane) pair an entry,
+//   a strict < insert; K4 differs from K3 only there).
+// * simt (R > 8): the CUDA-core structure of the first port. A CTA owns
+//   (query block of QB, 64 consecutive global bins) and streams the 128
+//   slices, each staged transposed in shared memory; each thread holds a
+//   4×4 register tile of (query, bin) dot products in IEEE fp32 FMAs (K2:
+//   three accumulators of the bf16 split, hi/lo packed in one staged word)
+//   and a running top-R per (query, bin) in shared memory (K4: a 32-bit
+//   ordered score and an 8-bit lane, 5 bytes an entry), the launcher
+//   halving QB until the lists fit; keys are distinct through the lane, or
+//   for K4 ordered by (score, lane) with the lanes arriving in increasing
+//   order, so the running top-R equals R min (argmin) rounds bit for bit,
+//   padding included.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -114,11 +117,11 @@ struct LaneArgs {
 
 int entry_bytes(int mode) { return mode == kK4 ? 5 : 4; }
 
-// Shared memory of a CTA: queries, one staged slice, its attributes, and
-// (only when R is not held in registers) the top-R lists.
-size_t smem_bytes(int mode, int QB, int R, bool lists) {
+// Shared memory of a CTA: queries, one staged slice, its attributes and the
+// top-R lists.
+size_t smem_bytes(int mode, int QB, int R) {
   return sizeof(float) * ((size_t)kDim * QB + (size_t)kDim * kNBP + 4 * kNB)
-         + (lists ? (size_t)entry_bytes(mode) * QB * kNB * R : 0);
+         + (size_t)entry_bytes(mode) * QB * kNB * R;
 }
 
 __device__ __forceinline__ void load4(const float* V, long long off, float* x) {
@@ -151,7 +154,7 @@ __device__ __forceinline__ float unordered(unsigned o) {
   return __uint_as_float((o & 0x80000000u) ? (o & 0x7FFFFFFFu) : ~o);
 }
 
-// Top-R lists in shared memory (R above kMaxRegR).
+// Top-R lists in shared memory.
 struct IntLists {           // packed keys
   int* key;
   __device__ int get(int i) const { return key[i]; }
@@ -187,9 +190,9 @@ __device__ __forceinline__ void emit(const LaneArgs& a, int q, int g, int j,
   }
 }
 
-// RR > 0: R == RR, top-R in registers; RR == 0: any R, lists in smem.
-// Register budget for two CTAs per SM; K2's three accumulators get one.
-template <int MODE, int RR>
+// Any R, the top-R lists in shared memory. Register budget for two CTAs
+// per SM; K2's three accumulators get one.
+template <int MODE>
 __global__ void __launch_bounds__(256, MODE == kK2 ? 1 : 2)
 lane_scan_kernel(LaneArgs a) {
   using Key = typename KeyOf<MODE>::T;
@@ -202,7 +205,7 @@ lane_scan_kernel(LaneArgs a) {
   float* sT = sC + kNB;
   float* sdn = sT + kNB;
   int* soid = reinterpret_cast<int*>(sdn + kNB);
-  Lists lists;                            // RR == 0: [QB][kNB][R] sorted
+  Lists lists;                            // [QB][kNB][R] sorted
   if constexpr (MODE == kK4) {
     lists.ord = reinterpret_cast<unsigned*>(soid + kNB);
     lists.lane = reinterpret_cast<unsigned char*>(lists.ord + QB * kNB * a.R);
@@ -226,8 +229,7 @@ lane_scan_kernel(LaneArgs a) {
     const float x = qq < nq ? a.q[(long long)(q0 + qq) * kDim + k] : 0.f;
     qs[k * QB + qq] = MODE == kK2 ? split_word(x) : x;
   }
-  if (RR == 0)
-    for (int i = tid; i < QB * kNB * R; i += nthreads) lists.set(i, inf_key<MODE>());
+  for (int i = tid; i < QB * kNB * R; i += nthreads) lists.set(i, inf_key<MODE>());
 
   float qn[kTQ], qv[kTQ], ql[kTQ], qr[kTQ];
   bool qok[kTQ], qac[kTQ], qat[kTQ];
@@ -240,15 +242,12 @@ lane_scan_kernel(LaneArgs a) {
     qv[i] = a.v[g]; ql[i] = a.l[g]; qr[i] = a.r[g];
     qac[i] = a.ac[g] != 0; qat[i] = a.at[g] != 0;
   }
-  // RR > 0: the sorted top-R itself; RR == 0: [0] caches the R-th key
-  constexpr int kRegR = RR > 0 ? RR : 1;
-  Key top[kTQ][kTB][kRegR];
+  // each list's R-th key, cached
+  Key cut[kTQ][kTB];
 #pragma unroll
   for (int i = 0; i < kTQ; ++i)
 #pragma unroll
-    for (int j = 0; j < kTB; ++j)
-#pragma unroll
-      for (int r = 0; r < kRegR; ++r) top[i][j][r] = inf_key<MODE>();
+    for (int j = 0; j < kTB; ++j) cut[i][j] = inf_key<MODE>();
 
   const long long bin_row = (long long)g0 * kSlices;   // bin g0, lane 0
   for (int s = 0; s < kSlices; ++s) {
@@ -337,41 +336,17 @@ lane_scan_kernel(LaneArgs a) {
           d = d > 0.f ? d : 0.f;
           key = (__float_as_int(d) & kKeyMask) | s;
         }
-        if (!(key < top[i][j][kRegR - 1])) continue;
-        if constexpr (RR > 0) {
-          Key k = key;   // carry the larger of each pair down the list
-#pragma unroll
-          for (int r = 0; r < RR; ++r) {
-            const Key lo = min(top[i][j][r], k);
-            k = max(top[i][j][r], k);
-            top[i][j][r] = lo;
-          }
-        } else {
-          const int L = ((tq * kTQ + i) * kNB + b) * R;
-          int p = R - 1;
-          while (p > 0 && lists.get(L + p - 1) > key) {
-            lists.set(L + p, lists.get(L + p - 1));
-            --p;
-          }
-          lists.set(L + p, key);
-          top[i][j][0] = lists.get(L + R - 1);
+        if (!(key < cut[i][j])) continue;
+        const int L = ((tq * kTQ + i) * kNB + b) * R;
+        int p = R - 1;
+        while (p > 0 && lists.get(L + p - 1) > key) {
+          lists.set(L + p, lists.get(L + p - 1));
+          --p;
         }
+        lists.set(L + p, key);
+        cut[i][j] = lists.get(L + R - 1);
       }
     }
-  }
-  if constexpr (RR > 0) {
-#pragma unroll
-    for (int i = 0; i < kTQ; ++i) {
-      const int qq = tq * kTQ + i;
-#pragma unroll
-      for (int j = 0; j < kTB; ++j) {
-        const int b = tb * kTB + j;
-        if (qq >= nq || b >= nb) continue;
-#pragma unroll
-        for (int r = 0; r < RR; ++r) emit<MODE>(a, q0 + qq, g0 + b, r, top[i][j][r]);
-      }
-    }
-    return;
   }
   __syncthreads();
   for (int i = tid; i < QB * R * kNB; i += nthreads) {
@@ -383,53 +358,42 @@ lane_scan_kernel(LaneArgs a) {
   }
 }
 
-template <int MODE, int RR>
-cudaError_t launch_r(const LaneArgs& a0, cudaStream_t stream) {
+// The simt body (R > 8): QB halved until the lists fit kSmemTarget.
+template <int MODE>
+cudaError_t launch(const LaneArgs& a0, cudaStream_t stream) {
   LaneArgs a = a0;
   int QB = kMaxQB;
-  while (RR == 0 && QB > kTQ && smem_bytes(MODE, QB, a.R, true) > kSmemTarget) QB /= 2;
+  while (QB > kTQ && smem_bytes(MODE, QB, a.R) > kSmemTarget) QB /= 2;
   a.QB = QB;
   a.nqb = (a.B + QB - 1) / QB;
   a.nbb = (a.nbins + kNB - 1) / kNB;
-  const size_t smem = smem_bytes(MODE, QB, a.R, RR == 0);
+  const size_t smem = smem_bytes(MODE, QB, a.R);
   const long long blocks = (long long)a.nqb * a.nbb;
   if (blocks > 0x7FFFFFFFLL) return cudaErrorInvalidConfiguration;
   cudaError_t e = cudaFuncSetAttribute(
-      lane_scan_kernel<MODE, RR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      lane_scan_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   const int threads = (QB / kTQ) * (kNB / kTB);
-  lane_scan_kernel<MODE, RR><<<(unsigned)blocks, threads, smem, stream>>>(a);
+  lane_scan_kernel<MODE><<<(unsigned)blocks, threads, smem, stream>>>(a);
   return cudaGetLastError();
-}
-
-template <int MODE>
-cudaError_t launch(const LaneArgs& a, cudaStream_t stream) {
-  // K4 holds R ≤ 2 in registers; K3 and K2 come here only for R > 8
-  if constexpr (MODE == kK4) {
-    if (a.R == 1) return launch_r<MODE, 1>(a, stream);
-    if (a.R == 2) return launch_r<MODE, 2>(a, stream);
-  }
-  return launch_r<MODE, 0>(a, stream);
 }
 
 // ------------------------------------------------------------ wgmma body
 
 // Two consumer warpgroups share each slice and its split, 32 bins a CTA at
 // every R, three slices in flight: measured fastest of the shapes tried
-// (PERF.md).
-template <int kPasses>
+// for K3 and K2 (PERF.md); K4 runs K3's shape with its own key policy.
+template <int kPasses, class Key = PackedKey>
 int launch_lane_wgmma(const Args& a, cudaStream_t stream) {
   constexpr int kNB4 = 32, kWG = 2, kStages = 3;
-  return launch_wgmma_r<Lane, kPasses, kNB4, kWG, kStages>(a, stream);
+  return launch_wgmma_r<Lane, kPasses, kNB4, kWG, kStages, Key>(a, stream);
 }
 
 }  // namespace
 
-// Which body a scan of `mode` at bin depth R runs: 0 = wgmma, 1 = simt.
-extern "C" int hvq_lane_scan_body(int mode, int R) {
-  return mode != kK4 && R <= kMaxWgmmaR ? 0 : 1;
-}
+// Which body a scan of `mode` at bin depth R runs: 0 = wgmma, 1 = simt
+// (the same for every mode).
+extern "C" int hvq_lane_scan_body(int, int R) { return R <= kMaxWgmmaR ? 0 : 1; }
 
 // Plain C entry point for ctypes. mode 0 = K3, 1 = K2, 2 = K4. Pointers are
 // device pointers: V (n_pad, 128) fp32; C, T, dn (n_pad,) fp32, oid
@@ -457,7 +421,11 @@ extern "C" int hvq_lane_scan(
     const Args w{V, C, T, dn, oid, q, qn, ac, v, at, l, r, out_d, out_i,
                  sn, B, db_tile, db_tile / kSlices, bin_top, 0, n_pad / db_tile,
                  n_pad / kSlices, 0, 0, 0};
-    return mode == kK3 ? launch_lane_wgmma<6>(w, s) : launch_lane_wgmma<3>(w, s);
+    switch (mode) {
+      case kK3: return launch_lane_wgmma<6>(w, s);
+      case kK2: return launch_lane_wgmma<3>(w, s);
+      default: return launch_lane_wgmma<6, BinKey>(w, s);
+    }
   }
   LaneArgs a{V, C, T, dn, oid, q, qn, ac, v, at, l, r, out_d, out_i,
              sn, B, db_tile / kSlices, n_pad / kSlices, bin_top, n_pad / db_tile,

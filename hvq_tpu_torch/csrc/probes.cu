@@ -4,7 +4,10 @@
 //
 // * trivial: o = 2·x. Replaces experiments/pallas_probe.py::_trivial
 //   (pallas_call at :32), the check that a hand kernel builds and runs.
-//   Bound by bytes (one read, one write); one thread an element.
+//   Bound by bytes (one read, one write): one 16-byte load and store a
+//   thread, a scalar tail. At the script's (256, 128) the launch and its
+//   host path, not the bytes, set the time (ops/kernels.py::run is thin for
+//   that reason).
 //
 // * probe_mm: replaces experiments/int8_probe.py::make_mosaic.kern
 //   (pallas_call at :83). For each tile t of d (nt, 128, Dt) and each query
@@ -48,7 +51,24 @@ namespace {
 
 // ------------------------------------------------------------------ trivial
 
+// One 16-byte load and store a thread (a warp moves 512 contiguous bytes),
+// the last n % 4 values one a thread; x and o 16-byte aligned.
 __global__ void trivial_kernel(const float* x, float* o, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int n4 = n / 4;
+  if (i < n4) {
+    float4 v = reinterpret_cast<const float4*>(x)[i];
+    v.x *= 2.0f; v.y *= 2.0f; v.z *= 2.0f; v.w *= 2.0f;
+    reinterpret_cast<float4*>(o)[i] = v;
+  } else if (i < n4 + n % 4) {
+    const int j = 4 * n4 + (i - n4);
+    o[j] = x[j] * 2.0f;
+  }
+}
+
+// The same one value a thread, for x or o not 16-byte aligned (a view at
+// an offset).
+__global__ void trivial_scalar(const float* x, float* o, int n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n) o[i] = x[i] * 2.0f;
 }
@@ -305,9 +325,14 @@ int launch_probe_mm(const void* q, const void* d, void* out, int B, int Dt, int 
 // o = 2·x over n fp32 values. Returns 0 or a cudaError_t.
 extern "C" int hvq_probe_trivial(const float* x, float* o, int n, void* stream) {
   if (n < 1) return (int)cudaErrorInvalidValue;
-  const int threads = 256;
-  trivial_kernel<<<(n + threads - 1) / threads, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, o, n);
+  const int threads = 128;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(o)) % 16 == 0) {
+    const int work = n / 4 + n % 4;             // float4s, then the tail
+    trivial_kernel<<<(work + threads - 1) / threads, threads, 0, s>>>(x, o, n);
+  } else {
+    trivial_scalar<<<(n + threads - 1) / threads, threads, 0, s>>>(x, o, n);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -1,38 +1,48 @@
-// The tensor-core body of the packed scans on Hopper (sm_90a), shared by K1
-// (packed_scan_v3.cu) and K3/K2 (lane_scan.cu): the mbarrier, TMA, cp.async
-// and wgmma wrappers, the 128B-swizzle operand layout, the bf16 splits, the
-// tensor-map encode and one kernel template.
+// The tensor-core body of the bin scans on Hopper (sm_90a), shared by K1
+// (packed_scan_v3.cu) and K3/K2/K4 (lane_scan.cu): the mbarrier, TMA,
+// cp.async and wgmma wrappers, the 128B-swizzle operand layout, the bf16
+// splits, the tensor-map encode and one kernel template.
 //
-// What the body computes, for bin depths R ≤ 8 (kMaxWgmmaR):
+// What the body computes, for bin depths R ≤ 8 (kMaxWgmmaR), with the mask
+//   ok = oid < sn ∧ (¬ac ∨ C == v) ∧ (¬at ∨ l ≤ T ≤ r):
+// K1, K3 and K2 (the packed key, PackedKey):
 //   d   = (‖d‖² − 2·q·d) + ‖q‖²  (one fma and one add, the TPU kernels' order)
-//   key = max(bits(d), 0) & ~0x7F | s,  +inf (0x7F800000) unless
-//         oid < sn ∧ (¬ac ∨ C == v) ∧ (¬at ∨ l ≤ T ≤ r)
+//   key = max(bits(d), 0) & ~0x7F | s,  +inf (0x7F800000) unless ok
 // and each bin keeps its R smallest keys; s, the payload, is the slice. The
 // integer max maps −0.0 and below to +0.0, whose key would sort first.
+// K4 (BinKey, pallas_scan.py:110-156): score = ‖d‖² − 2·q·d in one fma, no
+// ‖q‖² and no clamp, +inf unless ok; each bin keeps its R smallest (score,
+// lane) pairs, ties to the lowest lane, and reports (score, oid of the row).
 // What varies, as template arguments:
 //
 // * the layout L: where slice s of a CTA's bins lies (the slice's TMA
 //   coordinates and the attribute addresses) and how a kept key decodes.
 //   Axis1 (K1): bin b of a tile is rows tile·Dt + s·bins + b, so a slice of
-//   NB bins is NB contiguous rows, one 2-D box. Lane (K3, K2): global bin g
-//   is the 128 contiguous rows g·128 + s, so a slice is row g·128 + s of NB
-//   consecutive bins, 64 KB apart: one box of a 3-D tensor map over the
-//   plane, (128 lanes, 128 slices, nbins);
+//   NB bins is NB contiguous rows, one 2-D box. Lane (K3, K2, K4): global
+//   bin g is the 128 contiguous rows g·128 + s, so a slice is row g·128 + s
+//   of NB consecutive bins, 64 KB apart: one box of a 3-D tensor map over
+//   the plane, (128 lanes, 128 slices, nbins);
 // * the bf16 passes of q·d on the tensor cores, the TPU kernels' own
 //   arithmetic, all chained into one fp32 accumulator: 1 on a bf16 plane
 //   (K1); 3 on an fp32 plane, qhi·Vhi + qhi·Vlo + qlo·Vhi (K1's fp32 plane,
 //   and K2's body, pallas_scan.py:775-786); 6, the bf16×6 emulation of fp32
-//   that Mosaic runs for HIGHEST (K3), smallest terms first:
+//   that Mosaic runs for HIGHEST (K3, and K4, which asks for HIGHEST at
+//   pallas_scan.py:124-128), smallest terms first:
 //   ql·Vh + qm·Vm + qh·Vl + qm·Vh + qh·Vm + qh·Vh. An fp32 value splits as
 //   hi = bf16_rn(x), mid = bf16_rn(x − hi), lo = bf16_rn(x − hi − mid)
 //   (hi and lo = bf16_rn(x − hi) for three passes); every remainder is exact;
+// * the key policy Key: what a bin's list holds, how a (value, slice) pair
+//   becomes an entry, the empty entry, the insert and how an entry is
+//   emitted. PackedKey (the default: K1, K3, K2 and the anatomy) is the
+//   packed 32-bit key above; BinKey (K4) an (fp32 score, lane) pair, two
+//   registers an entry, inserted by a strict < (below);
 // * NB bins a CTA, kWG consumer warpgroups of 64 queries (the wgmma M) that
 //   share each slice (on an fp32 plane its split as well), and kStages
 //   slices in flight;
 // * for the K1 anatomy probe only (k1_anatomy.cu, experiments/v3_anatomy.py):
 //   kPasses = 0, an int8 plane and int8 queries in one s8 pass into an int32
 //   accumulator, q·d = int32 × kAlphaI8 in fp32; and kStop, where the
-//   epilogue stops (Stage below). K1, K3 and K2 instantiate kStop = kFull.
+//   epilogue stops (Stage below). K1, K3, K2 and K4 instantiate kStop = kFull.
 //
 // Structure. One producer warp keeps a ring of slices in flight: the plane's
 // slice by TMA, C, T, ‖d‖² and oid by cp.async, both completing on the
@@ -46,16 +56,22 @@
 // updated branch-free by a min/max pass (a masked key is +inf and passes
 // through, as does any key not below the list's R-th). Keys are distinct
 // through the payload, so the running top-R equals the TPU kernels' R min
-// rounds bit for bit. The launch order puts the query blocks of one slice
+// rounds bit for bit. K4's pairs are not distinct: a slice's lane is s and
+// the slices arrive in increasing s, so a strict < puts a score equal to a
+// kept one after it, and the running top-R again equals R argmin rounds
+// (first occurrence). The launch order puts the query blocks of one slice
 // range next to each other, so a slice is read from HBM once and from L2
 // after.
 //
 // What bounds it on this card: 2·B·n·100 FLOP a pass (the vectors have 100
 // lanes) at the main-path batch B = 1024 is ~800 FLOP per byte of the bf16
-// plane, so the tensor cores, not HBM, set the bound. Every (query, row)
+// plane, so the tensor cores, not HBM, set the bound (K4's six passes over
+// the fp32 plane: 6·2·B·n·100 FLOP, operations again). Every (query, row)
 // pair also costs CUDA-core instructions (distance, clamp, mask, key, the
 // top-R insert); measured on K1, that epilogue and not the product sets the
-// time (PERF.md).
+// time (PERF.md). K4's design answer is K3's: the same six-pass chain and
+// ring, its unpacked pair costing one more register an entry and a select
+// more a level of the insert.
 
 #pragma once
 
@@ -487,6 +503,12 @@ struct Lane {
     a.out_d[o] = __int_as_float(key & kKeyMask);
     a.out_p[o] = (int)((long long)(g0 + c) * kSlices + (key & 0x7F));
   }
+  // K4's kept (score, lane) of column c at output offset o: the score, −0.0
+  // written as +0.0, and the oid of its row g·128 + lane.
+  __device__ void emit_oid(const Args& a, long long o, int c, float v, int lane) const {
+    a.out_d[o] = __fadd_rn(v, 0.f);
+    a.out_p[o] = a.oid[(long long)(g0 + c) * kSlices + lane];
+  }
   static int bin_blocks(const Args& a, int NB) { return (a.nbins + NB - 1) / NB; }
   static long long blocks(const Args& a) { return (long long)a.nqb * a.nbb; }
   // The fp32 plane as (128 lanes, 128 slices, nbins): strides 512 B and
@@ -504,16 +526,89 @@ struct Lane {
   }
 };
 
+// Key policies: a bin list's entry T, the empty entry (also a masked
+// slot's), value (the distance or score from q·d, ‖d‖² and ‖q‖²), entry
+// (the list entry of a live value and its slice), insert (one step down a
+// sorted list: the smaller of the slot and the carried entry stays, the
+// larger is carried on) and emit (a kept entry through the layout).
+// Force-inlined, and the mask's select stays in the kernel, so PackedKey's
+// instantiations compile to the SASS they had before the policy existed.
+
+// K1, K3, K2: the packed 32-bit key (the header's first formula).
+struct PackedKey {
+  using T = int;
+  static __device__ __forceinline__ T empty() { return kInfKey; }
+  // (‖d‖² − 2·q·d) + ‖q‖² in the TPU kernel's order (2·q·d is exact, so one
+  // fma rounds as the subtraction does)
+  static __device__ __forceinline__ float value(float qd, float dn, float qn) {
+    return __fadd_rn(__fmaf_rn(-2.f, qd, dn), qn);
+  }
+  // the integer max maps −0.0 and below to +0.0, whose key would
+  // otherwise sort first
+  static __device__ __forceinline__ T entry(float d, int s) {
+    return (max(__float_as_int(d), 0) & kKeyMask) | s;
+  }
+  // keys are distinct through the payload: a min/max pair, branch-free
+  static __device__ __forceinline__ void insert(T& slot, T& k) {
+    const int lo = min(slot, k);
+    k = max(slot, k);
+    slot = lo;
+  }
+  template <class L>
+  static __device__ __forceinline__ void emit(const L& lay, const Args& a, long long o,
+                                              int c, T key) {
+    lay.emit(a, o, c, key);
+  }
+};
+
+// K4's entry: the unpacked score and the lane (slice) it came from.
+struct ScoreLane {
+  float v;
+  int lane;
+};
+
+// K4 (pallas_scan.py:110-156): score = ‖d‖² − 2·q·d in one rounding
+// (fmaf(−2, q·d, ‖d‖²); 2·q·d is exact, so it equals the TPU kernel's
+// dn − 2·qd), no ‖q‖² and no clamp, so scores may be negative; +inf where
+// masked. The empty entry is (+inf, lane 0), what argmin over an all-+inf
+// bin gives, so a bin with fewer than R live rows pads with it; a masked
+// score never enters. The insert is a strict <: the slices arrive in
+// increasing s, so a score equal to a kept one goes after it and ties go to
+// the lowest lane, argmin's first occurrence. Float < ties −0.0 with +0.0,
+// as argmin does; the emitted score is written +0.0 for −0.0 (Lane::emit_oid).
+struct BinKey {
+  using T = ScoreLane;
+  static __device__ __forceinline__ T empty() { return {__int_as_float(kInfKey), 0}; }
+  static __device__ __forceinline__ float value(float qd, float dn, float) {
+    return __fmaf_rn(-2.f, qd, dn);
+  }
+  static __device__ __forceinline__ T entry(float v, int s) { return {v, s}; }
+  static __device__ __forceinline__ void insert(T& slot, T& k) {
+    const bool lt = k.v < slot.v;
+    const T lo = lt ? k : slot;
+    k = lt ? slot : k;
+    slot = lo;
+  }
+  template <class L>
+  static __device__ __forceinline__ void emit(const L& lay, const Args& a, long long o,
+                                              int c, T e) {
+    lay.emit_oid(a, o, c, e.v, e.lane);
+  }
+};
+
 // kWG consumer warpgroups (64 queries each) share the ring, so a slice is
 // read once for 64·kWG queries; RR is the list length held in registers
 // (R rounded up to 1, 2, 3, 4, 6, 8; 1 for a stage before kPack).
-template <class L, int kPasses, int NB, int kWG, int RR, int kStages, int kStop = kFull>
+template <class L, int kPasses, int NB, int kWG, int RR, int kStages, int kStop = kFull,
+          class Key = PackedKey>
 __global__ void __launch_bounds__(kWG * kWGThreads + 32, kWG == 1 ? 2 : 1)
 scan_wgmma(__grid_constant__ const CUtensorMap plane, Args a) {
   using P = Plan<kPasses, NB, kWG, kStages>;
   constexpr bool kBf16 = P::kBf16, kDirect = P::kDirect;
   static_assert(kStop == kFull || std::is_same<L, Axis1Keys>::value,
                 "the anatomy stages write raw values (Axis1Keys)");
+  static_assert(kStop == kFull || std::is_same<Key, PackedKey>::value,
+                "the anatomy stages keep packed keys");
   constexpr int kConsumers = kWG * kWGThreads;
   // Round the dynamic base up to 1024 by offsetting the shared array itself,
   // so every access below stays a shared-memory access (LDS, not LD).
@@ -637,11 +732,11 @@ scan_wgmma(__grid_constant__ const CUtensorMap plane, Args a) {
     tlo[g] = at ? a.l[gq] : -kInf;
     thi[g] = at ? a.r[gq] : kInf;
   }
-  int top[kE][RR];
+  typename Key::T top[kE][RR];
 #pragma unroll
   for (int e = 0; e < kE; ++e)
 #pragma unroll
-    for (int r = 0; r < RR; ++r) top[e][r] = kInfKey;
+    for (int r = 0; r < RR; ++r) top[e][r] = Key::empty();
 
   typename std::conditional<P::kI8, int, float>::type acc[kE];
 #pragma unroll
@@ -694,11 +789,9 @@ scan_wgmma(__grid_constant__ const CUtensorMap plane, Args a) {
     fence_acc<NB>(acc);
 
     // Branch-free over the fragment (a warp-wide branch would be taken
-    // almost always): (‖d‖² − 2·q·d) + ‖q‖² in the TPU kernel's order
-    // (2·q·d is exact, so one fma rounds as the subtraction does); the
-    // integer max maps −0.0 and below to +0.0, whose key would otherwise
-    // sort first; a masked key becomes +inf, which the min/max insert
-    // passes through, as it does any key not below the list's R-th.
+    // almost always): each element's entry goes down its list (Key); a
+    // masked entry is +inf, which the insert passes through, as it does
+    // any entry not below the list's R-th.
     const float* sC = reinterpret_cast<const float*>(stage + P::kPlane);
     const float* sT = sC + NB;
     const float* sdn = sT + NB;
@@ -717,16 +810,12 @@ scan_wgmma(__grid_constant__ const CUtensorMap plane, Args a) {
         for (int e = 4 * j; e < 4 * j + 4; ++e) {
           const int h = e & 1, g = (e >> 1) & 1;
           const float Cb = h ? C2.y : C2.x, Tb = h ? T2.y : T2.x;
-          const float d = __fadd_rn(__fmaf_rn(-2.f, qd_of(acc[e]), h ? dn2.y : dn2.x), qn[g]);
+          const float d = Key::value(qd_of(acc[e]), h ? dn2.y : dn2.x, qn[g]);
           const bool ok = live[h] && Cb >= clo[g] && Cb <= chi[g] && Tb >= tlo[g] &&
                           Tb <= thi[g];
-          int k = ok ? (max(__float_as_int(d), 0) & kKeyMask) | s : kInfKey;
+          typename Key::T k = ok ? Key::entry(d, s) : Key::empty();
 #pragma unroll
-          for (int r = 0; r < RR; ++r) {     // carry the larger of each pair down
-            const int lo = min(top[e][r], k);
-            k = max(top[e][r], k);
-            top[e][r] = lo;
-          }
+          for (int r = 0; r < RR; ++r) Key::insert(top[e][r], k);   // carry the larger down
         }
       }
     } else {
@@ -787,7 +876,7 @@ scan_wgmma(__grid_constant__ const CUtensorMap plane, Args a) {
 #pragma unroll
       for (int r = 0; r < RR; ++r) {
         if (r >= a.R) break;
-        lay.emit(a, o + (long long)r * a.bins, c, top[e][r]);
+        Key::emit(lay, a, o + (long long)r * a.bins, c, top[e][r]);
       }
     } else {      // the min's bits in entry 0, zeros in entries 1..R−1
       lay.emit(a, o, c, top[e][0]);
@@ -798,7 +887,8 @@ scan_wgmma(__grid_constant__ const CUtensorMap plane, Args a) {
 
 // Encodes the plane's tensor map and launches one instantiation. Returns a
 // cudaError_t, or −CUresult (< 0) when the map cannot be encoded.
-template <class L, int kPasses, int NB, int kWG, int RR, int kStages, int kStop = kFull>
+template <class L, int kPasses, int NB, int kWG, int RR, int kStages, int kStop = kFull,
+          class Key = PackedKey>
 int launch_wgmma(Args a, cudaStream_t stream) {
   using P = Plan<kPasses, NB, kWG, kStages>;
   EncodeTiled enc = encode_fn();
@@ -810,7 +900,7 @@ int launch_wgmma(Args a, cudaStream_t stream) {
   a.nbb = L::bin_blocks(a, NB);
   const long long blocks = L::blocks(a);
   if (blocks > 0x7FFFFFFFLL) return cudaErrorInvalidConfiguration;
-  auto kernel = scan_wgmma<L, kPasses, NB, kWG, RR, kStages, kStop>;
+  auto kernel = scan_wgmma<L, kPasses, NB, kWG, RR, kStages, kStop, Key>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, P::smem);
   if (e != cudaSuccess) return e;
@@ -820,17 +910,17 @@ int launch_wgmma(Args a, cudaStream_t stream) {
 
 // The tensor-core body at bin depth R ≤ 8: NB4 bins a CTA for R ≤ 4, 32
 // above, with the top-R held at 1, 2, 3, 4, 6 or 8 entries.
-template <class L, int kPasses, int NB4, int kWG, int kStages>
+template <class L, int kPasses, int NB4, int kWG, int kStages, class Key = PackedKey>
 int launch_wgmma_r(const Args& a, cudaStream_t stream) {
   static_assert(kMaxWgmmaR == 8, "one case per register list length");
   switch (a.R) {
-    case 1: return launch_wgmma<L, kPasses, NB4, kWG, 1, kStages>(a, stream);
-    case 2: return launch_wgmma<L, kPasses, NB4, kWG, 2, kStages>(a, stream);
-    case 3: return launch_wgmma<L, kPasses, NB4, kWG, 3, kStages>(a, stream);
-    case 4: return launch_wgmma<L, kPasses, NB4, kWG, 4, kStages>(a, stream);
+    case 1: return launch_wgmma<L, kPasses, NB4, kWG, 1, kStages, kFull, Key>(a, stream);
+    case 2: return launch_wgmma<L, kPasses, NB4, kWG, 2, kStages, kFull, Key>(a, stream);
+    case 3: return launch_wgmma<L, kPasses, NB4, kWG, 3, kStages, kFull, Key>(a, stream);
+    case 4: return launch_wgmma<L, kPasses, NB4, kWG, 4, kStages, kFull, Key>(a, stream);
     case 5:
-    case 6: return launch_wgmma<L, kPasses, 32, kWG, 6, kStages>(a, stream);
-    default: return launch_wgmma<L, kPasses, 32, kWG, 8, kStages>(a, stream);
+    case 6: return launch_wgmma<L, kPasses, 32, kWG, 6, kStages, kFull, Key>(a, stream);
+    default: return launch_wgmma<L, kPasses, 32, kWG, 8, kStages, kFull, Key>(a, stream);
   }
 }
 

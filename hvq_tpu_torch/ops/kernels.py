@@ -7,9 +7,9 @@ Each replaces a Pallas kernel of ``hvq_tpu/ops/pallas_scan.py``:
   (``csrc/lane_scan.cu``) — ``fused_packed_scan``, ``fused_packed_scan_v2``
   and ``fused_bin_scan``.
 
-K1, K3 and K2 share one tensor-core body (``csrc/scan_wgmma.cuh``, which
-both sources include) for ``bin_top`` ≤ 8 and keep a CUDA-core body above
-(K4 has only the CUDA-core one): dispatch on shape, both built and checked.
+K1, K3, K2 and K4 share one tensor-core body (``csrc/scan_wgmma.cuh``,
+which both sources include) for ``bin_top`` ≤ 8 and keep a CUDA-core body
+above: dispatch on shape, both built and checked.
 
 The sources are compiled with ``nvcc`` for ``sm_90a``, one process per
 source in parallel, and linked into one shared library with a plain C
@@ -20,8 +20,10 @@ builds nothing and needs no ``nvcc``.
 Each wrapper runs its kernel's plain PyTorch version (in ``ops/scan.py``)
 for tensors on the CPU and launches the kernel for CUDA tensors, or
 raises: there is no fallback. ``launches`` counts kernel launches only;
-``k1_body_launches`` splits K1's by body and ``lane_body_launches`` K3's
-and K2's (the library says which body runs).
+``k1_body_launches`` splits K1's by body and ``lane_body_launches`` K3's,
+K2's and K4's (the library says which body runs). Every launch goes
+through :func:`run`, kept thin: at small shapes the host's launch path,
+not the kernel, sets the time.
 """
 
 from __future__ import annotations
@@ -51,7 +53,7 @@ _SOURCES = (
     _PKG / "csrc" / "packed_scan_v3.cu",
     _PKG / "csrc" / "lane_scan.cu",
 )
-# Included by both sources: the tensor-core body of K1, K3 and K2.
+# Included by both sources: the tensor-core body of K1, K3, K2 and K4.
 _HEADERS = (_PKG / "csrc" / "scan_wgmma.cuh",)
 BUILD_DIR = _PKG / "_build"
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -69,9 +71,9 @@ launches = {"packed_scan_v3": 0, "packed_scan": 0, "packed_scan_v2": 0,
 # bin_top ≤ 8, the CUDA-core body above; the library says which runs.
 k1_body_launches = {"wgmma": 0, "simt": 0}
 _BODIES = ("wgmma", "simt")
-# K3's and K2's launches by body (csrc/lane_scan.cu), as K1's.
-lane_body_launches = {"packed_scan": {"wgmma": 0, "simt": 0},
-                      "packed_scan_v2": {"wgmma": 0, "simt": 0}}
+# K3's, K2's and K4's launches by body (csrc/lane_scan.cu), as K1's.
+lane_body_launches = {name: {"wgmma": 0, "simt": 0}
+                      for name in ("packed_scan", "packed_scan_v2", "bin_scan")}
 
 # ``mode`` of the C entry point hvq_lane_scan for each lane-layout kernel.
 _LANE_MODES = {"packed_scan": 0, "packed_scan_v2": 1, "bin_scan": 2}
@@ -175,12 +177,16 @@ def build_library(stem: str, sources, entry_points: dict, info: dict) -> ctypes.
 
 def build() -> ctypes.CDLL:
     """Compile (if needed) and load the kernel library; idempotent
-    (``build_info`` as :func:`build_library` fills it)."""
+    (``build_info`` as :func:`build_library` fills it). Every launch calls
+    it, so it locks only to build: once loaded, the library is read without
+    the lock. Its entry points were declared once at load (:func:`_load`),
+    and ctypes keeps each as an attribute of the library."""
     global _lib
-    with _lock:
-        if _lib is None:
-            _lib = build_library("libhvq_kernels", _SOURCES, _ENTRY_POINTS, build_info)
-        return _lib
+    if _lib is None:
+        with _lock:
+            if _lib is None:
+                _lib = build_library("libhvq_kernels", _SOURCES, _ENTRY_POINTS, build_info)
+    return _lib
 
 
 # Each C entry point's argument types (all return an int).
@@ -257,27 +263,43 @@ def _check_scan_args(Vs, planes, C, T, dn, oid, qV, active_c, v, active_t,
 def _launch(name, device, B, W, qV, active_c, active_t, call):
     """Run kernel ``name`` on the device's current stream: derives its
     query inputs, allocates its (B, W) fp32 and int32 outputs, passes
-    ``call(qn, ac, at, out_d, out_i, stream)`` their pointers, raises on a
-    launch error (a cudaError_t, or −CUresult when K1's tensor map cannot
-    be encoded) and counts the launch."""
+    ``call(qn, ac, at, out_d, out_i, stream)`` their pointers through
+    :func:`run` and counts the launch."""
     qn = (qV * qV).sum(dim=1)
     ac = active_c.to(torch.int32)
     at = active_t.to(torch.int32)
     out_d = torch.empty((B, W), dtype=torch.float32, device=device)
     out_i = torch.empty((B, W), dtype=torch.int32, device=device)
-    run(name, device, lambda stream: call(qn.data_ptr(), ac.data_ptr(), at.data_ptr(),
-                                          out_d.data_ptr(), out_i.data_ptr(), stream))
+    run(name, device, call, qn.data_ptr(), ac.data_ptr(), at.data_ptr(),
+        out_d.data_ptr(), out_i.data_ptr())
     launches[name] += 1
     return out_d, out_i
 
 
-def run(name: str, device, call) -> None:
-    """``call(stream)`` with ``device`` current and its current stream;
-    raises on the C entry's error (a cudaError_t, or −CUresult when a
-    tensor map cannot be encoded)."""
-    with torch.cuda.device(device):
-        err = call(torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
+# The handle of a device's current stream, read without building a
+# torch.cuda.Stream object a launch: torch._C._cuda_getCurrentRawStream
+# (index) returns it as an int, the call PyTorch's own generated kernels
+# launch with (inductor's get_raw_stream). A build without it goes through
+# torch.cuda.current_stream(index).cuda_stream, which builds one.
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or (
+    lambda index: torch.cuda.current_stream(index).cuda_stream)
+# The current device's index (torch.cuda.current_device() without its
+# initialisation check: a CUDA tensor exists, so CUDA is initialised).
+_current_device = getattr(torch._C, "_cuda_getDevice", None) or torch.cuda.current_device
+
+
+def run(name: str, device: torch.device, fn, *args) -> None:
+    """``fn(*args, stream)`` on the caller's current stream of ``device``,
+    with ``device`` current: a device guard is entered only when another
+    device is. Raises on the C entry's error (a cudaError_t, or −CUresult
+    when a tensor map cannot be encoded)."""
+    index, current = device.index, _current_device()
+    if index is None or index == current:
+        err = fn(*args, _raw_stream(current))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, _raw_stream(index))
+    if err:
         raise RuntimeError(f"{name} launch failed: " + (
             f"cudaError {err}" if err > 0 else f"tensor map encode, CUresult {-err}"))
 
@@ -354,8 +376,7 @@ def _lane_scan(name, Vp, C, T, dn, oid, qV, active_c, v, active_t, l, r, sn,
             db_tile, bin_top, out_d, out_i, stream,
         ),
     )
-    if name in lane_body_launches:
-        lane_body_launches[name][_BODIES[lib.hvq_lane_scan_body(mode, bin_top)]] += 1
+    lane_body_launches[name][_BODIES[lib.hvq_lane_scan_body(mode, bin_top)]] += 1
     return out
 
 
@@ -410,8 +431,15 @@ def bin_scan(
     """K4: the unpacked lane-layout bin scan, output contract of
     ``fused_bin_scan``: (scores (B, W) fp32 = ‖d‖² − 2·q·d, +inf where
     masked or empty, ids (B, W) int32 = ``oid`` of the row, or of the
-    bin's lane 0 for padding). CPU tensors run :func:`bin_scan_plain`;
-    CUDA tensors launch the kernel.
+    bin's lane 0 for padding). CPU tensors run :func:`bin_scan_plain`
+    (q·d in IEEE fp32, what the JAX package computes on a CPU); CUDA tensors
+    launch the kernel: for ``bin_top`` ≤ 8 the tensor-core body K3 runs,
+    q·d as the TPU kernel forms it (``Precision.HIGHEST``, the 6-pass bf16
+    emulation of fp32 chained smallest first into one fp32 accumulator) and
+    an (fp32 score, lane) pair an entry; above it the CUDA-core body in IEEE
+    fp32 FMAs (counted apart in ``lane_body_launches``). Both stay within
+    the certificate's fp32 slack of the plain version; ties go to the
+    lowest lane in all three.
     """
     return _lane_scan("bin_scan", Vp, C, T, dn, oid, qV, active_c, v,
                       active_t, l, r, sn, db_tile, bin_top)

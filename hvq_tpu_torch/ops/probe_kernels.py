@@ -30,7 +30,6 @@ and launches its kernel for CUDA tensors, or raises: there is no fallback.
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import threading
 
@@ -74,8 +73,9 @@ INT8_PROBE_VARIANTS = {
     "int8->f32": (torch.int8, torch.float32, 2),
 }
 
-# Kernel launches by variant, since import or the last reset_launches().
-launches: collections.Counter = collections.Counter()
+# Kernel launches by variant, since import or the last reset_launches() (a
+# plain dict, whose item update is cheaper than a Counter's on the launch path).
+launches: dict = {}
 
 _lock = threading.Lock()
 _lib = None
@@ -103,12 +103,16 @@ _ENTRY_POINTS = {
 
 def build() -> ctypes.CDLL:
     """Compile (if needed) and load the probe library; idempotent
-    (``build_info`` as ``kernels.build_library`` fills it)."""
+    (``build_info`` as ``kernels.build_library`` fills it). Locks only to
+    build: once loaded, the library is read without the lock (as
+    ``kernels.build``)."""
     global _lib
-    with _lock:
-        if _lib is None:
-            _lib = kernels.build_library("libhvq_probes", _SOURCES, _ENTRY_POINTS, build_info)
-        return _lib
+    if _lib is None:
+        with _lock:
+            if _lib is None:
+                _lib = kernels.build_library("libhvq_probes", _SOURCES, _ENTRY_POINTS,
+                                             build_info)
+    return _lib
 
 
 # ----------------------------------------------------------------- trivial
@@ -121,15 +125,17 @@ def trivial_plain(x: torch.Tensor) -> torch.Tensor:
 def trivial(x: torch.Tensor) -> torch.Tensor:
     """``experiments/pallas_probe.py::_trivial``: o = 2·x for a contiguous
     fp32 tensor. CPU tensors run :func:`trivial_plain`; CUDA tensors launch
-    the kernel."""
-    if x.dtype != torch.float32 or not x.is_contiguous() or x.numel() < 1:
+    the kernel on the current stream. At the script's size the host's
+    launch path is the time, so this one does only the checks, one
+    allocation and the launch."""
+    n = x.numel()
+    if x.dtype is not torch.float32 or not x.is_contiguous() or n < 1:
         raise ValueError("trivial takes a non-empty contiguous fp32 tensor")
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return trivial_plain(x)
     out = torch.empty_like(x)
-    fn = build().hvq_probe_trivial
-    kernels.run("trivial", x.device, lambda s: fn(x.data_ptr(), out.data_ptr(), x.numel(), s))
-    launches["trivial"] += 1
+    kernels.run("trivial", x.device, build().hvq_probe_trivial, x.data_ptr(), out.data_ptr(), n)
+    launches["trivial"] = launches.get("trivial", 0) + 1
     return out
 
 
@@ -181,10 +187,10 @@ def int8_probe(q: torch.Tensor, d: torch.Tensor, variant: str,
             raise ValueError("product=False is a timing of the card's kernel")
         return int8_probe_plain(q, d, variant)
     out = torch.empty((nt, B, Dt // BIN), dtype=out_dtype, device=q.device)
-    fn = build().hvq_probe_mm
-    kernels.run("int8_probe", q.device, lambda s: fn(
-        kind, int(product), q.data_ptr(), d.data_ptr(), out.data_ptr(), B, Dt, nt, s))
-    launches[f"int8_probe {variant}" + ("" if product else " transpose only")] += 1
+    kernels.run("int8_probe", q.device, build().hvq_probe_mm, kind, int(product),
+                q.data_ptr(), d.data_ptr(), out.data_ptr(), B, Dt, nt)
+    key = f"int8_probe {variant}" + ("" if product else " transpose only")
+    launches[key] = launches.get(key, 0) + 1
     return out
 
 
@@ -307,12 +313,12 @@ def k1_anatomy(
     qn = _qnorm(qV)
     ac, at = active_c.to(torch.int32), active_t.to(torch.int32)
     out = torch.empty((B, n_pad // BIN * bin_top), dtype=torch.int32, device=device)
-    fn = getattr(build(), f"hvq_k1_anatomy_{plane}")
-    kernels.run("k1_anatomy", device, lambda s: fn(
-        STAGES.index(run_stage), Vs.data_ptr(), C.data_ptr(), T.data_ptr(), dn.data_ptr(),
-        oid.data_ptr(), q.data_ptr(), qn.data_ptr(), ac.data_ptr(), v.data_ptr(),
-        at.data_ptr(), l.data_ptr(), r.data_ptr(), int(sn), B, n_pad, tile, bin_top,
-        out.data_ptr(), s))
-    launches[f"k1_anatomy {plane} {stage} R{bin_top}"] += 1
+    kernels.run("k1_anatomy", device, getattr(build(), f"hvq_k1_anatomy_{plane}"),
+                STAGES.index(run_stage), Vs.data_ptr(), C.data_ptr(), T.data_ptr(),
+                dn.data_ptr(), oid.data_ptr(), q.data_ptr(), qn.data_ptr(), ac.data_ptr(),
+                v.data_ptr(), at.data_ptr(), l.data_ptr(), r.data_ptr(), int(sn), B, n_pad,
+                tile, bin_top, out.data_ptr())
+    key = f"k1_anatomy {plane} {stage} R{bin_top}"
+    launches[key] = launches.get(key, 0) + 1
     return out
 

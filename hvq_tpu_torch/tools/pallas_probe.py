@@ -3,11 +3,24 @@ builds and runs (``_trivial``, o = 2·x), then K3 is timed against the plain
 lane scan and their agreement reported as the script reports it.
 
     python -m hvq_tpu_torch.tools.pallas_probe [--out chiprun_out/pallas_probe.json]
+                                               [--reference DIR]
 
 ``_trivial`` runs on a (256, 128) fp32 array, held bit for bit against
 ``x * 2`` (its plain version, which is also the one PyTorch call that
 computes it), both timed, beside its bound (one read and one write of the
-array at the HBM rate). Then, at the script's shape (B 256, Dt 8192, 128
+array at the HBM rate). At that size the host's launch path is the time,
+so each is timed three ways, the two taking turns: CUDA events around
+10³ calls (``ms``); the host clock over 10⁴ calls in a row started after a
+``synchronize()`` (``host_us``, µs a call), with the events read around
+the same calls (``same_loop_us``); and the kernel's own duration in a
+``torch.profiler`` trace (``device_ms``). The launch path's steps are
+timed on the host clock alone (``launch_path``: ``kernels.run`` with a
+no-op call, the output's allocation, the C entry through ctypes, and the
+three input ops every scan launch derives at B = 1024).
+``--reference DIR`` (another tree's root, e.g. an earlier commit unpacked
+with ``git archive``) times the launch path of DIR's package and of this
+one's in turns (this, DIR, this, DIR), each in a fresh interpreter. Then,
+at the script's shape (B 256, Dt 8192, 128
 tiles, R = ``kernel_bin_top``; rows, predicates and queries as the script
 draws them, made on the card from a seed), K3 (``kernels.packed_scan``)
 against ``packed_scan_plain(layout="lane", precision="highest")``, the port
@@ -22,7 +35,12 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import statistics
+import subprocess
+import sys
+import tempfile
 import time
+from pathlib import Path
 
 import torch
 
@@ -63,17 +81,146 @@ def trivial_check(seed: int = 0) -> dict:
     return dict(first_call_s=first, max_abs_err=0.0)
 
 
-def trivial_time(seed: int = 0, reps: int = 100) -> dict:
+HOST_CALLS = 10_000
+
+
+def clocks(fn, calls: int = HOST_CALLS) -> dict:
+    """CUDA events and the host clock around the same ``calls`` calls of
+    ``fn`` in a row (one warm-up, a ``synchronize()`` before): µs a call by
+    each. The host clock is what the host spends to enqueue them (the
+    queue is drained after it stops); the events span what the card did
+    between the first call's enqueue and the last's end, so they exceed
+    the host clock only by what the card runs behind."""
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    b.record()
+    torch.cuda.synchronize()
+    return dict(events=a.elapsed_time(b) / calls * 1e3, host=(t1 - t0) / calls * 1e6)
+
+
+def device_ms(fn, match: str, calls: int = 200) -> dict:
+    """The device time a call of the kernels whose names contain ``match``,
+    from a ``torch.profiler`` trace of ``calls`` calls of ``fn`` (their self
+    device time summed over the trace, over ``calls``), with the kernels'
+    names; ``device_ms`` is None when the trace holds no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if match in e.key]
+    us = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+             for e in rows)
+    return dict(device_ms=us / calls / 1e3 if rows and us else None,
+                kernels=sorted(e.key for e in rows))
+
+
+def launch_path(calls: int = HOST_CALLS) -> dict:
+    """Host µs a call of ``probe_kernels.trivial`` and ``x * 2`` at the
+    script's shape, and of the trivial path's steps: ``kernels.run`` with a
+    no-op call (device check and stream handle), ``torch.empty_like`` (the
+    output), the C entry called through ctypes with its arguments ready
+    (the launch and its error check); then the three input ops every scan
+    launch derives (``kernels._launch``: ‖q‖², and the predicate flags as
+    int32) at B = 1024. Uses only what every tree of the port has, so
+    ``--reference`` can time an older one."""
+    dev = require_card()
+    x = torch.randn(TRIVIAL_SHAPE, device=dev)
+    out = torch.empty_like(x)
+    entry = probe_kernels.build().hvq_probe_trivial
+    ready = (x.data_ptr(), out.data_ptr(), x.numel(), torch.cuda.current_stream().cuda_stream)
+    qV = torch.randn(1024, 128, device=dev)
+    ac, at = torch.rand(1024, device=dev) < 0.5, torch.rand(1024, device=dev) < 0.5
+
+    def inputs():
+        (qV * qV).sum(dim=1)
+        ac.to(torch.int32)
+        at.to(torch.int32)
+
+    def host_us(fn):
+        return clocks(fn, calls)["host"]
+
+    return dict(trivial=host_us(lambda: probe_kernels.trivial(x)),
+                x2=host_us(lambda: x * 2),
+                run_noop=host_us(lambda: kernels.run("noop", x.device, lambda s: 0)),
+                empty_like=host_us(lambda: torch.empty_like(x)),
+                entry=host_us(lambda: entry(*ready)),
+                launch_inputs=host_us(inputs))
+
+
+def in_turns(fns: dict, timer, rounds: int = 3) -> dict:
+    """``timer(fn)`` of each of ``fns`` (name → fn) in ``rounds`` rounds, the
+    functions taking turns inside each; the median of each name's rounds."""
+    got = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            got[name].append(timer(fn))
+    return {name: statistics.median(v) for name, v in got.items()}
+
+
+def trivial_time(seed: int = 0, reps: int = 1000) -> dict:
+    """``_trivial`` and ``x * 2`` (and the plain version, which is ``x * 2``
+    too) timed by CUDA events around ``reps`` calls (ms a call), the median
+    of three rounds taken in turns; by both clocks around the same 10⁴
+    calls in three rounds taken in turns, each round kept (``same_loop_us``:
+    where they part, the card runs behind the host) and the host clock's
+    median reported (``host_us``, ``library_host_us``, µs a call); the
+    launch path's steps (``launch_path_us``); and the profiler's kernel
+    durations (``device_ms``, ``library_device_ms``); beside the bound."""
     dev = require_card()
     x = torch.randn(TRIVIAL_SHAPE, device=dev,
                     generator=torch.Generator(device=dev).manual_seed(seed))
-    ms = event_ms(lambda: probe_kernels.trivial(x), reps)
-    plain_ms = event_ms(lambda: probe_kernels.trivial_plain(x), reps)
-    library_ms = event_ms(lambda: x * 2, reps)
-    res = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **trivial_bound())
-    print(f"trivial {ms:.5f} ms, plain {plain_ms:.5f} ms, x*2 {library_ms:.5f} ms, "
-          f"bound {res['bound_ms']:.7f} ms ({res['bound_by']})", flush=True)
+    fns = {"ms": lambda: probe_kernels.trivial(x),
+           "plain_ms": lambda: probe_kernels.trivial_plain(x),
+           "library_ms": lambda: x * 2}
+    ms = in_turns(fns, lambda fn: event_ms(fn, reps))
+    same_loop = {"trivial": [], "x2": []}
+    for _ in range(3):
+        for name, fn in zip(same_loop, (fns["ms"], fns["library_ms"])):
+            same_loop[name].append(clocks(fn))
+    host = {key: statistics.median(r["host"] for r in same_loop[name])
+            for key, name in (("host_us", "trivial"), ("library_host_us", "x2"))}
+    path = launch_path()
+    dev_k = device_ms(fns["ms"], "trivial_kernel")
+    dev_x = device_ms(fns["library_ms"], "elementwise_kernel")
+    res = dict(**ms, **trivial_bound(), **host, same_loop_us=same_loop, launch_path_us=path,
+               device_ms=dev_k["device_ms"], library_device_ms=dev_x["device_ms"],
+               profiled_kernels=dev_k["kernels"] + dev_x["kernels"])
+    print(f"trivial {res['ms']:.5f} ms, plain {res['plain_ms']:.5f} ms, x*2 "
+          f"{res['library_ms']:.5f} ms, bound {res['bound_ms']:.7f} ms ({res['bound_by']}); "
+          f"host µs a call: trivial {res['host_us']:.3f}, x*2 {res['library_host_us']:.3f}; "
+          f"events and host µs a call of the same calls: {json.dumps(same_loop)}; "
+          f"launch path {json.dumps(path)}; device ms a launch: trivial {res['device_ms']}, "
+          f"x*2 {res['library_device_ms']} ({res['profiled_kernels']})", flush=True)
     return res
+
+
+def launch_path_in_turns(reference: str, rounds: int = 2) -> dict:
+    """:func:`launch_path` of this tree's package and of ``reference``'s (a
+    tree root holding ``hvq_tpu_torch/``), in turns, each in a fresh
+    interpreter with that tree first on the path."""
+    here = str(Path(__file__).resolve().parents[2])
+    out = {"here": [], "reference": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        for i in range(2 * rounds):
+            side, root = (("here", here), ("reference", reference))[i % 2]
+            path = os.path.join(tmp, f"{i}.json")
+            env = {**os.environ, "PYTHONPATH": os.path.abspath(root)}
+            subprocess.run([sys.executable, os.path.abspath(__file__), "--launch-path-only",
+                            "--out", path], env=env, check=True)
+            with open(path) as f:
+                out[side].append(json.load(f))
+            print(f"launch path [{side}]: {json.dumps(out[side][-1])}", flush=True)
+    return out
 
 
 def k3_inputs(seed: int = 0, b: int = B, dt: int = DT, nt: int = NT):
@@ -140,10 +287,19 @@ def k3_check(seed: int = 0, reps: int = 5) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default="chiprun_out/pallas_probe.json")
+    ap.add_argument("--reference", help="another tree's root: time its launch path "
+                                        "and this one's in turns")
+    ap.add_argument("--launch-path-only", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     dev = require_card()
+    if args.launch_path_only:
+        with open(args.out, "w") as f:
+            json.dump(launch_path(), f)
+        return 0
     print(f"device: {torch.cuda.get_device_name(dev)} ({card_line()})", flush=True)
     res = dict(trivial=dict(**trivial_check(), **trivial_time()), k3=k3_check())
+    if args.reference:
+        res["launch_path_in_turns"] = launch_path_in_turns(args.reference)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(res, f, indent=1)

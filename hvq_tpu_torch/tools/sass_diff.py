@@ -8,12 +8,14 @@ beside them) from this tree and from DIR, another tree's
 ``hvq_tpu_torch/csrc`` (e.g. an earlier commit's, unpacked with ``git
 archive``), with the library's own nvcc flags; dumps each object with
 ``cuobjdump -sass``; and compares the kernels one by one, instruction for
-instruction. Names are demangled (``cu++filt``) and a trailing template
-argument that only this tree has is dropped before matching: the shared
-body ``scan_wgmma``'s ``kStop``, whose default ``kFull`` = 5 is what the
-engines instantiate. Prints and writes one JSON object: each kernel
-``same``, ``differs``, ``only here`` or ``only in reference``, and the
-count of each. Needs nvcc and cuobjdump.
+instruction. Names are demangled (``cu++filt``) and the trailing template
+arguments that a default fills, which an older tree's name lacks, are
+dropped before matching: the shared body ``scan_wgmma``'s key policy
+``PackedKey`` and, before it, ``kStop`` = ``kFull`` (5), what K1, K3 and K2
+instantiate; so is the CUDA-core lane kernel's ``RR`` = 0 of an older tree,
+whose register-list variants (RR > 0, K4's) are gone. Prints and writes one
+JSON object: each kernel ``same``, ``differs``, ``only here`` or ``only in
+reference``, and the count of each. Needs nvcc and cuobjdump.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from pathlib import Path
 from hvq_tpu_torch.ops import kernels
 
 _FULL_STAGE = "5"          # csrc/scan_wgmma.cuh: Stage kFull
+_DEFAULT_KEY = "PackedKey"  # csrc/scan_wgmma.cuh: scan_wgmma's default Key
 
 
 def compile_tree(nvcc: str, tree: Path, work: Path) -> list[Path]:
@@ -70,14 +73,19 @@ def demangle(tool: str, names: list) -> dict:
 
 
 def normalized(name: str) -> str:
-    """The demangled name with scan_wgmma's kStop = kFull argument dropped
-    (``void <unnamed>::scan_wgmma<<unnamed>::Axis1, (int)1, …, (int)5>(…)``)."""
+    """The demangled name with scan_wgmma's trailing Key = PackedKey and
+    then kStop = kFull dropped (``void <unnamed>::scan_wgmma<<unnamed>::Axis1,
+    (int)1, …, (int)5, <unnamed>::PackedKey>(…)``), and lane_scan_kernel's
+    RR = 0 (``lane_scan_kernel<(int)0, (int)0>``)."""
     m = re.search(r"scan_wgmma<(.*)>\(", name)
     if m:
         args = m.group(1).split(", ")
+        if len(args) == 8 and args[-1].endswith(_DEFAULT_KEY):
+            args = args[:-1]
         if len(args) == 7 and args[-1].replace("(int)", "") == _FULL_STAGE:
-            name = name[:m.start(1)] + ", ".join(args[:-1]) + name[m.end(1):]
-    return name
+            args = args[:-1]
+        name = name[:m.start(1)] + ", ".join(args) + name[m.end(1):]
+    return re.sub(r"lane_scan_kernel<(\(int\)\d+), \(int\)0>\(", r"lane_scan_kernel<\1>(", name)
 
 
 def sass_diff(reference: str) -> dict:

@@ -18,7 +18,7 @@ from hvq_tpu_torch.models.oracle import search_oracle
 from hvq_tpu_torch.ops import kernels, probe_kernels
 from hvq_tpu_torch.ops.masks import query_predicate_fields
 from hvq_tpu_torch.ops.scan import packed_scan_plain
-from hvq_tpu_torch.tools import int8_probe, v3_anatomy
+from hvq_tpu_torch.tools import int8_probe, pallas_probe, v3_anatomy
 from hvq_tpu_torch.utils.check import bin_scan_agreement, scan_agreement
 from hvq_tpu_torch.utils.compare import compare_distances, recall_at_k
 from hvq_tpu_torch.utils.formats import recompute_result_distances
@@ -448,6 +448,124 @@ def test_lane_wgmma_is_deterministic(cuda, name, db_tile, R):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("db_tile", [1024, 2048, 8192])
+def test_bin_scan_wgmma_matches_plain_over_depths_tiles_and_batches(cuda, R, db_tile):
+    """K4's tensor-core body (R ≤ 8) against the plain version at batches
+    that fill no, one and many 64-query blocks, every launch counted on
+    that body."""
+    kernels.reset_launches()
+    for B in (1, 40, 100, 1000):
+        a, _ = _lane_agree("bin_scan", _k1_inputs(cuda, "fp32", B), 30000, db_tile, R)
+        assert a["ok"], (B, a)
+    assert kernels.lane_body_launches["bin_scan"] == {"wgmma": 4, "simt": 0}
+
+
+@pytest.mark.cuda
+def test_bin_scan_simt_above_r8_matches_plain(cuda):
+    kernels.reset_launches()
+    for B in (40, 1000):
+        a, _ = _lane_agree("bin_scan", _k1_inputs(cuda, "fp32", B), 30000, 2048, 16)
+        assert a["ok"], (B, a)
+    assert kernels.lane_body_launches["bin_scan"] == {"wgmma": 0, "simt": 2}
+
+
+TIED_LANES = [5, 9, 40, 70]
+
+
+def _tied_rows(device, n_pad=8192, B=100, seed=47):
+    """Every bin's lanes 5, 9, 40 and 70 hold query 0 itself, so its score
+    there, ‖q‖² − 2·q·q < 0, ties bit for bit across the four; the other
+    queries are scaled × 3, so many of their scores are negative too. No
+    predicate, no sample limit."""
+    args = list(_inputs(device, n_pad=n_pad, B=B, seed=seed))
+    qV = args[5].clone()
+    qV[1:] *= 3.0
+    V = args[0].clone().view(-1, 128, 128)
+    V[:, TIED_LANES] = qV[0]
+    args[0] = V.view(n_pad, 128)
+    args[3] = (args[0] * args[0]).sum(1)
+    args[5] = qV
+    args[6:] = query_predicate_fields(*(torch.zeros(B, device=device) for _ in range(4)))
+    return args
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [3, 4, 8, 16])
+def test_bin_scan_keeps_the_lowest_lanes_of_exact_ties(cuda, R):
+    """Four rows of every bin tie bit for bit for query 0: the kept ids are
+    the lowest lanes, round by round, on both bodies; scores may be
+    negative."""
+    args, Dt = _tied_rows(cuda), 2048
+    n_pad, bins = args[0].shape[0], Dt // 128
+    a, (s, i) = _lane_agree("bin_scan", args, n_pad, Dt, R)
+    assert a["ok"], a
+    assert bool((s[1:] < 0).any())
+    s0 = s[0].view(-1, R, bins)             # (tile, round, bin)
+    i0 = i[0].view(-1, R, bins)
+    g = torch.arange(n_pad // 128, device=cuda).view(-1, bins)
+    for j, lane in enumerate(TIED_LANES[:R]):
+        assert torch.equal(i0[:, j], (g * 128 + lane).int()), (j, lane)
+        assert torch.equal(s0[:, j].view(torch.int32), s0[:, 0].view(torch.int32))
+    assert bool((s0[:, 0] < 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("db_tile,R", [(2048, 2), (8192, 4), (1024, 3), (8192, 8),
+                                       (2048, 16)])
+def test_bin_scan_is_deterministic(cuda, db_tile, R):
+    args = _inputs(cuda, n_pad=8 * 8192, B=1024, seed=45)
+    kw = dict(db_tile=db_tile, bin_top=R)
+    s0, i0 = kernels.bin_scan(*args, 60000, **kw)
+    for _ in range(4):
+        s, i = kernels.bin_scan(*args, 60000, **kw)
+        assert torch.equal(s.view(torch.int32), s0.view(torch.int32))
+        assert torch.equal(i, i0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["trivial", "bin_scan"])
+def test_thin_launch_path_runs_on_the_callers_stream(cuda, kernel):
+    """Launched inside ``torch.cuda.stream(side)``, with the side stream
+    queued behind a long sleep that also precedes the input's last write:
+    the side stream is still busy after the launch, and the result is
+    right after ``side.synchronize()``. A launch on any other stream would
+    read the input before that write."""
+    kernels.build()
+    probe_kernels.build()             # no build inside the timed window
+    side = torch.cuda.Stream()
+    if kernel == "trivial":
+        base = torch.randn(256, 128, device=cuda)
+        want = base * 2
+    else:
+        args = list(_inputs(cuda, n_pad=8192, B=40, seed=49))
+        base = args[5]
+        want = kernels.plain["bin_scan"](*args, 8192, db_tile=2048, bin_top=2)
+    side.wait_stream(torch.cuda.current_stream())
+
+    def launch():
+        x = base.clone()
+        if kernel == "trivial":
+            return probe_kernels.trivial(x)
+        args[5] = x
+        return kernels.bin_scan(*args, 8192, db_tile=2048, bin_top=2)
+
+    with torch.cuda.stream(side):
+        launch()                      # the side stream's pool holds the blocks now
+        side.synchronize()            # (a new block's cudaMalloc may sync the card)
+        torch.cuda._sleep(200_000_000)
+        got = launch()
+    assert not side.query()
+    side.synchronize()
+    if kernel == "trivial":
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    else:
+        qV, dn = args[5], args[3]
+        a = bin_scan_agreement(*got, *want, 2, 16, (qV * qV).sum(1), float(dn.max()), REL_MM)
+        assert a["ok"], a
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("impl", ["v1", "v2"])
 @pytest.mark.parametrize("scale", [1.0, 64.0, 4096.0])
 def test_lane_certificate_slack_boundary_stress(cuda, impl, scale):
@@ -519,6 +637,14 @@ def test_trivial_is_twice_x_bit_for_bit(cuda):
         x = torch.randn(shape, device=cuda)
         assert torch.equal(probe_kernels.trivial(x).view(torch.int32),
                            (x * 2).view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_trivial_clocks_read_events_and_host_over_the_same_calls(cuda):
+    x = torch.randn(256, 128, device=cuda)
+    got = pallas_probe.clocks(lambda: probe_kernels.trivial(x), 100)
+    assert set(got) == {"events", "host"}
+    assert got["events"] > 0 and got["host"] > 0
 
 
 @pytest.mark.cuda

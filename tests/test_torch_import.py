@@ -284,3 +284,96 @@ def test_chip_smoke_bounds_the_tpu_probe_scripts_from_their_shapes():
     assert round(pb["v3_anatomy:189 fp32"]["bound_ms"], 3) == 0.795
     assert round(pb["v3_anatomy:189 bf16"]["bound_ms"], 3) == 0.265
     assert pb["int8_probe:83 int8"]["bound_ms"] < pb["int8_probe:83 bf16"]["bound_ms"]
+
+
+def test_chip_smoke_certificate_ratio_nets_the_key_term_only_for_packed_keys():
+    """Phase 3b's arithmetic on synthetic numbers: a packed key's error is
+    net of its 2⁻¹⁶·true truncation; K4's unpacked score + ‖q‖² is not."""
+    cs = _chip_smoke()
+    true = torch.tensor([1000.0, 4.0], dtype=torch.float64)
+    qn = torch.tensor([10.0, 30.0], dtype=torch.float64)
+    dist = true + torch.tensor([0.02, -0.01], dtype=torch.float64)
+    slack = 1e-4 * (qn + 50.0)                       # rel_mm·(‖q‖² + max‖d‖²)
+    unpacked = cs.certificate_ratio(dist, true, qn, 50.0, 1e-4, packed=False)
+    assert unpacked == pytest.approx(float(max(0.02 / slack[0], 0.01 / slack[1])))
+    packed = cs.certificate_ratio(dist, true, qn, 50.0, 1e-4)
+    want = max((0.02 - 2.0 ** -16 * 1000.0) / slack[0], (0.01 - 2.0 ** -16 * 4.0) / slack[1])
+    assert packed == pytest.approx(float(want)) and packed < unpacked
+
+
+def _path(name):
+    """A synthetic main-path result of chip_smoke (its run_engine keys)."""
+    launches = {"packed_scan_v3": 0, "packed_scan": 0, "packed_scan_v2": 0, "bin_scan": 0}
+    launches[name] = 10
+    bodies = {"wgmma": 10 if name == "packed_scan_v3" else 0, "simt": 0}
+    lanes = {k: {"wgmma": 0, "simt": 0} for k in ("packed_scan", "packed_scan_v2", "bin_scan")}
+    if name in lanes:
+        lanes[name]["wgmma"] = 10
+    return dict(name=name, qps=1.0, ms=2.0, plain_ms=50.0, bound_ms=1.0,
+                bound_by="operations", product_only_matmul_ms=1.5, launches=launches,
+                bodies=bodies, lane_bodies=lanes, max_abs_err=0.01,
+                bound_fp32_simt_ms=3.0)
+
+
+def test_chip_smoke_kernels_line_carries_k4s_new_keys():
+    """On synthetic numbers: K4's entry carries its own path's bodies,
+    certificate ratio, deterministic cases and product-only time beside
+    the keys every kernel has; K3's keep theirs."""
+    cs = _chip_smoke()
+    r6 = {"v3": _path("packed_scan_v3"), "v1": _path("packed_scan"),
+          "v2": _path("packed_scan_v2"),
+          "k4": dict(ms=5.5, plain_ms=50.7, bound_ms=1.252, bound_by="operations",
+                     bound_fp32_simt_ms=3.08, product_only_matmul_ms=5.6, launches=1,
+                     bodies={"wgmma": 1, "simt": 0}, max_abs_err=0.002)}
+    r7 = _path("packed_scan_v3")
+    r8 = dict(_path("packed_scan_v3"), window=dict(ms=7.0, plain_ms=300.0, bound_ms=1.0,
+                                                   bound_by="operations",
+                                                   product_only_matmul_ms=4.0))
+    names = ("packed_scan_v3", "packed_scan", "packed_scan_v2", "bin_scan")
+    worst = dict.fromkeys(names, 0.001)
+    cert = {n: {"fp32": 0.01 * (i + 1)} for i, n in enumerate(names)}
+    det = {n: 7 for n in names}
+    entries = {e["name"]: e for e in cs.kernel_entries(r6, r7, r8, worst, cert, det, "lib.so")}
+    k4 = entries["bin_scan"]
+    assert k4["bodies"] == {"wgmma": 1, "simt": 0} and k4["launches"] == 1
+    assert k4["certificate_error_ratio"] == {"fp32": 0.04} and k4["deterministic_cases"] == 7
+    assert k4["product_only_matmul_ms"] == 5.6 and k4["ms"] == 5.5 and k4["bound_ms"] == 1.252
+    assert k4["max_abs_err"] == 0.002 and k4["library_ms"] is None
+    assert entries["packed_scan"]["bodies"] == {"wgmma": 10, "simt": 0}
+    need = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    assert all(need <= set(e) for e in entries.values())
+
+
+def test_chip_smoke_trivial_entry_carries_device_and_host_times():
+    from hvq_tpu_torch.tools import int8_probe, v3_anatomy
+
+    cs = _chip_smoke()
+    timing = dict(ms=0.01, plain_ms=0.01, bound_ms=1e-4, bound_by="bytes")
+    t_anat = {n: timing for n, *_ in v3_anatomy.ALL_SPECS}
+    t_i8 = {v: dict(timing, product_only_ms=0.3) for v in int8_probe.VARIANTS}
+    t_triv = dict(timing, library_ms=0.011, device_ms=0.002, host_us=7.5,
+                  library_device_ms=0.0021, library_host_us=8.5,
+                  launch_path_us={"trivial": 7.5, "x2": 8.5, "run_noop": 1.0,
+                                  "launch_inputs": 15.0})
+    keys = ([f"k1_anatomy {p} {s} R{R}" for _, s, R, p in v3_anatomy.ALL_SPECS]
+            + [f"int8_probe {v}" for v in int8_probe.VARIANTS] + ["trivial"])
+    counts, worst = dict.fromkeys(keys, 13), dict.fromkeys(keys, 0.0)
+    entries = cs.probe_entries(t_anat, t_i8, t_triv, {"max_abs_err": 0.0}, counts, worst,
+                               "probes.so")
+    triv = entries[-1]
+    assert triv["name"] == "trivial" and triv["launches"] == 13
+    assert (triv["device_ms"], triv["host_us"]) == (0.002, 7.5)
+    assert (triv["library_device_ms"], triv["library_host_us"]) == (0.0021, 8.5)
+    assert triv["launch_path_us"]["run_noop"] == 1.0 and triv["library_ms"] == 0.011
+    assert len(entries) == len(keys)
+
+
+def test_lane_body_launches_count_bin_scan_and_reset_zeroes_them():
+    from hvq_tpu_torch.ops import kernels
+
+    assert set(kernels.lane_body_launches) == {"packed_scan", "packed_scan_v2", "bin_scan"}
+    kernels.lane_body_launches["bin_scan"]["wgmma"] = 4
+    kernels.lane_body_launches["bin_scan"]["simt"] = 1
+    kernels.reset_launches()
+    assert kernels.lane_body_launches["bin_scan"] == {"wgmma": 0, "simt": 0}

@@ -9,14 +9,16 @@
 * K4's plain version, ``bin_scan_plain``, against ``fused_bin_scan`` in
   interpret mode and ``fused_bin_scan_reference``: rtol 1e-6, atol 1e-4
   (tests/test_pallas.py:32-41; both sides are fp32 dots that differ only in
-  summation order), ids equal, padding ids included.
+  summation order), ids equal, padding ids included; also at its edges:
+  negative scores, exact ties (the lowest lanes kept), a bin whose only
+  live row is lane 0.
 * ``kernel_bin_top`` and the lane ``binned_stream_topk`` against the JAX's,
   the wrappers' CPU route and input checks, and the K4 agreement check.
-* A rehearsal of K3's arithmetic on the card, the bf16×6 emulation of fp32
-  that Mosaic runs for HIGHEST (``csrc/scan_wgmma.cuh``): a test-local
-  six-pass product put in the plain scan's place, held to
-  ``fused_packed_scan`` in interpret mode (test_torch_scan's ``TOL``) and to
-  fp64 within a quarter of the certificate's slack at the stress norms.
+* A rehearsal of K3's and K4's arithmetic on the card, the bf16×6
+  emulation of fp32 that Mosaic runs for HIGHEST (``csrc/scan_wgmma.cuh``):
+  a test-local six-pass product put in the plain scans' place, held to
+  ``fused_packed_scan`` / ``fused_bin_scan`` in interpret mode and to fp64
+  within a quarter of the certificate's slack at the stress norms.
 """
 
 import jax
@@ -214,6 +216,54 @@ def test_bin_scan_ties_go_to_the_lowest_lane():
         *jx, jnp.int32(256), db_tile=256, bin_top=4))
 
 
+def _k4_edge_problem(case):
+    """(problem, R) of one K4 edge case on 512 rows (4 bins of one tile):
+    negative scores (queries × 3); rows 3, 64 and 100 of every bin equal to
+    query 1, whose scores there tie bit for bit; or bin 1's lane 0 the only
+    row that passes every query's type-2 range, under a permuted oid."""
+    a = _bin_problem(5, n_pad=512, B=8)
+    a["ac"][:] = a["at"][:] = False
+    if case == "negative_scores":
+        a["qV"] *= 3.0
+        return a, 2
+    if case == "exact_ties":
+        a["Vp"].reshape(4, 128, 128)[:, [3, 64, 100]] = a["qV"][1]
+        a["dn"] = (a["Vp"] * a["Vp"]).sum(1).astype(np.float32)
+        return a, 3
+    a["oid"] = np.random.default_rng(6).permutation(512).astype(np.int32)
+    a["T"][:] = 9.0
+    a["T"][128] = 2.5
+    a["at"][:] = True
+    a["l"][:], a["r"][:] = 2.0, 3.0
+    return a, 3
+
+
+@pytest.mark.parametrize("case", ["negative_scores", "exact_ties", "lane0_only_live_row"])
+def test_bin_scan_plain_matches_kernel_interpret_and_reference_at_edges(case):
+    """K4's edge cases: scores below zero (no ‖q‖², no clamp); exact ties,
+    where every round keeps the lowest lane of the tie; a bin whose only
+    live row is lane 0, whose padding entries carry the id it keeps."""
+    a, R = _k4_edge_problem(case)
+    jx, tx = _both(a)
+    got = tscan.bin_scan_plain(*tx, 512, db_tile=512, bin_top=R)
+    for want in (
+        jscan.fused_bin_scan(*jx, jnp.int32(512), db_tile=512, bin_top=R, interpret=True),
+        jscan.fused_bin_scan_reference(*jx, jnp.int32(512), db_tile=512, bin_top=R),
+    ):
+        _assert_bin_scans_equal(got, want)
+    s, i = (x.numpy().reshape(8, R, 4) for x in got)   # (query, round, bin)
+    if case == "negative_scores":
+        assert (s[:, 0] < 0).any()
+    elif case == "exact_ties":
+        np.testing.assert_array_equal(i[1], np.arange(4)[None, :] * 128
+                                      + np.array([3, 64, 100])[:, None])
+        assert (s[1].view(np.int32) == s[1, :1].view(np.int32)).all() and (s[1] < 0).all()
+    else:
+        lane0 = a["oid"][128]
+        assert np.isfinite(s[:, 0, 1]).all() and not np.isfinite(s[:, 1:, 1]).any()
+        assert (i[:, :, 1] == lane0).all()
+
+
 @pytest.mark.parametrize("certified", [True, False])
 def test_kernel_bin_top_matches_jax(certified):
     for db_tile in (128, 256, 512, 1024, 2048, 8192, 16384):
@@ -364,15 +414,57 @@ def test_six_pass_product_stays_inside_a_quarter_of_the_certificate_slack(six_pa
     assert bool((pos[0].view(2, 4, 64)[0, :, 0] < 64).all())
 
 
+@pytest.mark.parametrize("scale", [1.0, 64.0, 4096.0])
+def test_six_pass_k4_stays_inside_a_quarter_of_the_certificate_slack(six_pass, scale):
+    """K4's tensor-core arithmetic (the six-pass product, then ‖d‖² − 2·q·d
+    in one rounding) rehearsed on the CPU at its Dt = 2048, R = 2 over the
+    certificate stress layout: every kept score + ‖q‖² against its fp64
+    distance (no key term: K4 is unpacked) uses at most a quarter of
+    ``_CERT_REL_MM·(‖q‖² + max‖d‖²)``, and the plain version with it
+    matches fused_bin_scan in interpret mode (chip_smoke holds the kernel
+    itself to half)."""
+    n_pad, B = 16384, 16
+    rng = np.random.default_rng(34)
+    V = rng.uniform(-6, 6, (n_pad, 128)).astype(np.float32) * np.float32(scale)
+    q = rng.uniform(-6, 6, (B, 128)).astype(np.float32) * np.float32(scale)
+    V[:, 100:] = q[:, 100:] = 0.0
+    dirs = rng.standard_normal((64, 100))
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    radius = 0.1 * scale * (1.0 + 1e-7 * rng.standard_normal((64, 1)))
+    V[:64, :100] = (q[0, :100].astype(np.float64) + radius * dirs).astype(np.float32)
+    Vt, qt = torch.from_numpy(V), torch.from_numpy(q)
+    dn = (Vt * Vt).sum(1)
+    z, f = torch.zeros(n_pad), torch.zeros(B, dtype=torch.bool)
+    s, ids = tscan.bin_scan_plain(Vt, z, z, dn, torch.arange(n_pad, dtype=torch.int32), qt,
+                                  f, torch.zeros(B), f, torch.zeros(B), torch.zeros(B), n_pad,
+                                  db_tile=2048, bin_top=2)
+    qn = (qt.double() ** 2).sum(1)[:, None].expand_as(s)
+    true = ((qt.double()[:, None, :] - Vt.double()[ids.long()]) ** 2).sum(2)
+    slack = _CERT_REL_MM * (qn + float(dn.max()))
+    ratio = float(((s.double() + qn - true).abs() / slack).max())
+    assert torch.isfinite(s).all() and ratio <= 0.25, ratio
+    if scale == 1.0:
+        # the ordering at the tie-free scale is the interpret kernel's
+        jx = [jnp.asarray(x.numpy()) for x in (Vt, z, z, dn)]
+        want = jscan.fused_bin_scan(
+            *jx, jnp.arange(n_pad, dtype=jnp.int32), jnp.asarray(q), jnp.zeros(B, bool),
+            jnp.zeros(B), jnp.zeros(B, bool), jnp.zeros(B), jnp.zeros(B), jnp.int32(n_pad),
+            db_tile=2048, bin_top=2, interpret=True)
+        assert bin_scan_agreement(s, ids, torch.from_numpy(np.array(want[0])),
+                                  torch.from_numpy(np.array(want[1])), 2, 16,
+                                  (qt ** 2).sum(1), float(dn.max()), _CERT_REL_MM)["ok"]
+
+
 def test_reset_launches_clears_the_per_body_counts_and_cpu_runs_count_nothing():
     _, tx = _case(24)
     kernels.reset_launches()
-    for name in ("packed_scan", "packed_scan_v2"):
+    for name in ("packed_scan", "packed_scan_v2", "bin_scan"):
         for R in (4, 16):            # a tensor-core depth and a CUDA-core one
             getattr(kernels, name)(*tx, 4000, db_tile=1024, bin_top=R)
     assert kernels.lane_body_launches == {
         "packed_scan": {"wgmma": 0, "simt": 0},
-        "packed_scan_v2": {"wgmma": 0, "simt": 0}}
+        "packed_scan_v2": {"wgmma": 0, "simt": 0},
+        "bin_scan": {"wgmma": 0, "simt": 0}}
     assert set(kernels.launches.values()) == {0}
     kernels.lane_body_launches["packed_scan"]["wgmma"] = 3
     kernels.lane_body_launches["packed_scan_v2"]["simt"] = 2

@@ -362,3 +362,54 @@ def test_sass_diff_matches_kernels_across_the_stage_argument():
     assert normalized(anatomy) == anatomy
     assert normalized("void <unnamed>::k1_simt<float>(<unnamed>::Args)") == \
         "void <unnamed>::k1_simt<float>(<unnamed>::Args)"
+
+
+def test_sass_diff_drops_the_default_key_policy_and_the_old_lane_rr():
+    """The shared body's key policy defaults to PackedKey (K1, K3, K2), which
+    an older tree's names lack; K4's BinKey is kept. The CUDA-core lane
+    kernel lost its RR argument; an older tree's RR = 0 kernels pair with
+    this tree's, its RR > 0 ones (K4's register variants) do not."""
+    from hvq_tpu_torch.tools.sass_diff import normalized
+
+    old = ("void <unnamed>::scan_wgmma<<unnamed>::Lane, (int)6, (int)32, (int)2, (int)4, "
+           "(int)3, (int)5>(CUtensorMap_st, <unnamed>::Args)")
+    new = old.replace("(int)5>(", "(int)5, <unnamed>::PackedKey>(")
+    k4 = old.replace("(int)5>(", "(int)5, <unnamed>::BinKey>(")
+    assert normalized(new) == normalized(old)
+    assert normalized(k4) == k4 != normalized(old)
+    lane = "void <unnamed>::lane_scan_kernel<(int){}>(<unnamed>::LaneArgs)"
+    assert normalized(lane.format("1, (int)0")) == lane.format(1) == normalized(lane.format(1))
+    assert normalized(lane.format("2, (int)2")) == lane.format("2, (int)2")
+
+
+def test_run_launches_on_the_current_stream_and_guards_only_another_device(monkeypatch):
+    """kernels.run passes the current stream's handle of the tensor's device
+    last, enters a device guard only when another device is current, and
+    raises on a non-zero return (the card's calls, with the CUDA hooks
+    replaced by recorders)."""
+    entered = []
+
+    class Guard:
+        def __init__(self, index):
+            self.index = index
+
+        def __enter__(self):
+            entered.append(self.index)
+
+        def __exit__(self, *exc):
+            return False
+
+    monkeypatch.setattr(kernels, "_current_device", lambda: 0)
+    monkeypatch.setattr(kernels, "_raw_stream", lambda index: 1000 + index)
+    monkeypatch.setattr(torch.cuda, "device", Guard)
+    calls = []
+    fn = lambda *a: calls.append(a) or 0
+    kernels.run("k", torch.device("cuda", 0), fn, 7, 8)
+    kernels.run("k", torch.device("cuda"), fn)
+    assert calls == [(7, 8, 1000), (1000,)] and entered == []
+    kernels.run("k", torch.device("cuda", 1), fn, 9)
+    assert calls[-1] == (9, 1001) and entered == [1]
+    with pytest.raises(RuntimeError, match="cudaError 700"):
+        kernels.run("k", torch.device("cuda", 0), lambda s: 700)
+    with pytest.raises(RuntimeError, match="CUresult 1"):
+        kernels.run("k", torch.device("cuda", 0), lambda s: -1)
