@@ -70,13 +70,32 @@ Phases, in order; any failure exits non-zero with a traceback:
    pays the time view's build; the timed search with its launch counts
    (K1 = full + windowed batches + rung-1 runs, nothing else) and route
    counts; a fenced phase run; recall and ``.dist`` on the 64 oracle
-   queries, and every query within 0.002 of the batched K1 engine.
+   queries, and every query within 0.002 of the batched K1 engine;
+8. the paged engine over phase 6's host rows and queries on the fp32
+   plane (k′ 128), windows of 2,500,000 rows rounded to 2,490,368 (five,
+   the last 38,528): K1 at the window's shape held to its plain version
+   and timed; after a warm-up, the timed search with its launch counts
+   (K1 = windows × batches, nothing else, all on the tensor-core body)
+   and each window uploaded exactly once; a fenced phase run with the
+   upload rate; recall and ``.dist`` on the 64 oracle queries and every
+   query within 0.002 of phase 6's batched K1 answer (bf16 plane); the
+   default window the card's free memory gives;
+9. the IVF engine at ``experiments/ivf_scale.py``'s settings (10⁷ rows
+   in 1000 clusters, 4096 type-0 queries from the same centres, cap 1024,
+   query_batch 1024): the index built on the card (k-means included),
+   QPS after a warm-up, recall@100 ≥ 0.99 on 64 oracle queries, and no
+   scan kernel launched;
+10. the CLI in process: gen-data 10⁵ and gen-queries 10³, build-index of
+   both kinds, ``run`` of batched, partitioned (from its checkpoint),
+   paged (``--resilient``, 16384-row windows), ivf (from its checkpoint)
+   and batched under ``--profile`` (a Chrome trace), then ``compare`` of
+   the exact engines' ``.dist`` files ("same" or "similar").
 
 Each path runs with the launch counts set to 0 just before it and read
 just after; the launches of K1, K3, K2 and K4 are also counted per body,
 and every launch of theirs on a main path must run the tensor-core body.
-K1 is timed at its three main-path shapes (D=10⁶ fp32, D=10⁷ bf16, the
-partitioned window), K3 and K2 at theirs (D=10⁶, Dt=8192, R=4), K4 at
+K1 is timed at its four main-path shapes (D=10⁶ fp32, D=10⁷ bf16, the
+partitioned window, the paged window), K3 and K2 at theirs (D=10⁶, Dt=8192, R=4), K4 at
 its own, each beside its bound, its plain version and ``torch.matmul``
 of the same bf16 passes alone (product only: not the same function, and
 the port never calls it). The last three lines are the card (``nvidia-smi`` name, power
@@ -91,6 +110,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -104,7 +124,7 @@ from hvq_tpu_torch.constants import VEC_DIM  # noqa: E402
 from hvq_tpu_torch.models.oracle import search_oracle_batched  # noqa: E402
 from hvq_tpu_torch.utils.compare import compare_distances, recall_at_k  # noqa: E402
 from hvq_tpu_torch.utils.formats import QuerySet, recompute_result_distances  # noqa: E402
-from hvq_tpu_torch.utils.generators import generate_queries  # noqa: E402
+from hvq_tpu_torch.utils.generators import generate_dataset, generate_queries  # noqa: E402
 from hvq_tpu_torch.tools import workload  # noqa: E402
 from hvq_tpu_torch import get_engine  # noqa: E402
 from hvq_tpu_torch.models import batched  # noqa: E402
@@ -812,7 +832,7 @@ def run_engine(tag, eng, ds, qs, ref, seed) -> dict:
     assert full.ok, full
     return dict(name=name, qps=qs.m / wall, ms=ms, plain_ms=plain_ms, **bnd,
                 launches=launches, bodies=bodies, lane_bodies=lane_bodies,
-                max_abs_err=agree["max_abs_err"], suspects=ladder["suspects"])
+                max_abs_err=agree["max_abs_err"], suspects=ladder["suspects"], ids=ids)
 
 
 def k4_path(tag, db, qs) -> dict:
@@ -869,27 +889,29 @@ def paths_d1e6(seed: int = 100) -> dict:
     assert eng.scan_impl == "v3"
     ref = references(tag, ds, qs, eng.db)
     out["v3"] = run_engine(f"{tag} v3", eng, ds, qs, ref, seed)
-    del eng
+    del eng, out["v3"]["ids"]
     lane_db = DeviceDB.from_dataset(ds, db_tile=8192, device=DEV)
     for impl in ("v1", "v2"):
         eng = get_engine("batched")(ds, device=DEV, scan_impl=impl,
                                     device_db=lane_db)
         assert eng.db.db_tile == 8192 and eng.bin_top == 4
         out[impl] = run_engine(f"{tag} {impl}", eng, ds, qs, ref, seed)
-        del eng
+        del eng, out[impl]["ids"]
     out["k4"] = k4_path(tag, lane_db, qs)
     return out
 
 
 def path_d1e7(seed: int = workload.PARTITIONED_SEED):
     """Phase 6: K1 on the bf16 plane at D=10⁷. Returns its result and what
-    phase 7 reuses: the dataset, queries, engine and oracle answer."""
+    phases 7 and 8 reuse: the dataset, queries, engine, oracle answer and
+    the engine's ids for every query."""
     tag = "D=1e+07 bf16"
     ds, qs = dataset(workload.PARTITIONED_ROWS, seed, tag)
     eng = get_engine("batched")(ds, device=DEV, scan_store="bf16")
     assert eng.scan_impl == "v3"
     ref = references(tag, ds, qs, eng.db)
-    return run_engine(tag, eng, ds, qs, ref, seed), (ds, qs, eng, ref)
+    r = run_engine(tag, eng, ds, qs, ref, seed)
+    return r, (ds, qs, eng, ref, r.pop("ids"))
 
 
 def window_vs_plain(tag, eng, qs) -> dict:
@@ -927,7 +949,7 @@ def window_vs_plain(tag, eng, qs) -> dict:
 
 def path_partitioned(reused, seed: int = workload.PARTITIONED_SEED) -> dict:
     """Phase 7: the partitioned engine over phase 6's rows and queries."""
-    ds, qs6, partner, ref = reused
+    ds, qs6, partner, ref, _ = reused
     tag = "D=1e+07 bf16 partitioned"
     qs = workload.partitioned_queries(qs6, seed)
     t0 = time.perf_counter()
@@ -994,12 +1016,221 @@ def path_partitioned(reused, seed: int = workload.PARTITIONED_SEED) -> dict:
                 max_abs_err=win["max_abs_err"])
 
 
+def paged_window_vs_plain(tag, eng, qs) -> dict:
+    """K1 on the paged engine's first window (its own upload, outside the
+    counted search: global ``oid``, padding rows n) at B = query_batch
+    against its plain version, then both timed beside the bound."""
+    w0, wlen = eng.windows[0]
+    Vw, Vs, Cw, Tw, dnw, oidw = eng._upload_window(w0, wlen)
+    B, rows = eng.query_batch, Vw.shape[0]
+    qV, fields = first_batch(qs, B)
+    args = (Vs, Cw, Tw, dnw, oidw, qV, *fields, eng.ds.n)
+    kw = dict(db_tile=eng.db_tile, bin_top=eng.bin_top)
+    got = kernels.packed_scan_v3(*args, **kw)
+    want = kernels.plain["packed_scan_v3"](*args, **kw)
+    agree = scan_agreement(*got, *want, eng.bin_top, eng.db_tile // 128,
+                           (qV * qV).sum(1), float(dnw.max()), eng._rel_mm)
+    del want
+    log(f"[{tag}] K1 paged window vs plain (rows={rows}, B={B}, R={eng.bin_top}): {agree}")
+    assert agree["ok"], agree
+    for _ in range(2):
+        assert same_bits(got, kernels.packed_scan_v3(*args, **kw)), "K1 paged rerun differs"
+    del got
+    ms = event_ms(lambda: kernels.packed_scan_v3(*args, **kw), 3)
+    plain_ms = event_ms(lambda: kernels.plain["packed_scan_v3"](*args, **kw), 3)
+    bnd = k1_bound(Vs, B, rows * eng.bin_top // 128, rows)
+    bnd["product_only_matmul_ms"] = product_only_ms(Vs, qV, 0, rows, 3)
+    log(f"[{tag}] K1 paged window {ms:.3f} ms/call, plain {plain_ms:.3f} ms/call, {bnd}")
+    del Vw, Vs, Cw, Tw, dnw, oidw, args
+    torch.cuda.empty_cache()
+    return dict(ms=ms, plain_ms=plain_ms, **bnd, max_abs_err=agree["max_abs_err"])
+
+
+# Phase 8's requested window: rounded down to whole 16384-row tiles.
+PAGED_WINDOW_ROWS = 2_500_000
+
+
+def path_paged(ds, qs, ref, batched_ids) -> dict:
+    """Phase 8: the paged engine over phase 6's host rows and queries on
+    the fp32 plane, five windows of 2,490,368 rows (the last 38,528)."""
+    tag = "D=1e+07 fp32 paged"
+    free = torch.cuda.mem_get_info(DEV)[0]
+    derived = get_engine("paged")(ds, device=DEV)
+    log(f"[{tag}] default window on this card ({free} bytes free): "
+        f"window_rows={derived.window_rows} windows={len(derived.windows)} "
+        f"R={derived.bin_top}")
+    del derived
+    eng = get_engine("paged")(ds, device=DEV, window_rows=PAGED_WINDOW_ROWS)
+    log(f"[{tag}] engine: window_rows={eng.window_rows} windows={eng.windows} "
+        f"db_tile={eng.db_tile} R={eng.bin_top} k'={eng.kprime} B={eng.query_batch} "
+        f"scan_impl={eng.scan_impl}")
+    wr = PAGED_WINDOW_ROWS - PAGED_WINDOW_ROWS % eng.db_tile    # 2,490,368 at 16384
+    nw = -(-ds.n // wr)                                        # 5 at D=10⁷
+    assert eng.window_rows == wr and len(eng.windows) == nw
+    assert eng.windows[-1][1] == ds.n - (nw - 1) * wr          # 38,528 at D=10⁷
+    assert eng.scan_impl == "v3" and eng.kprime == 128 and eng.certified
+    win = paged_window_vs_plain(tag, eng, qs)
+    uploads = []
+    upload = eng._upload_window
+    eng._upload_window = lambda w0, wlen: uploads.append(w0) or upload(w0, wlen)
+    t0 = time.perf_counter()
+    eng.search(generate_queries(eng.query_batch, seed=3, categories=workload.CATEGORIES))
+    torch.cuda.synchronize()
+    log(f"[{tag}] warm-up search {time.perf_counter() - t0:.1f} s "
+        f"(pays the ‖d‖² bound over every row, {eng._dn_max_bound()})")
+    uploads.clear()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    ids, dists = eng.search(qs)
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    bodies = dict(kernels.k1_body_launches)
+    lane_bodies = {k: dict(v) for k, v in kernels.lane_body_launches.items()}
+    reruns = dict(eng.last_reruns)
+    log(f"[{tag}] search {qs.m} queries: {wall:.3f} s = {qs.m / wall:.1f} QPS; "
+        f"launches {launches}; K1 bodies {bodies}; uploads {uploads}; reruns {reruns}")
+    want = dict.fromkeys(kernels.launches, 0)
+    want["packed_scan_v3"] = len(eng.windows) * -(-qs.m // eng.query_batch)
+    assert launches == want, (launches, want)
+    assert bodies == {"wgmma": want["packed_scan_v3"], "simt": 0}, bodies
+    assert uploads == [w0 for w0, _ in eng.windows], uploads
+    assert ids.shape == (qs.m, 100) and np.isfinite(dists).all() and (ids < ds.n).all()
+
+    phases = PhaseTimer(device=DEV)
+    eng.search(qs, phases=phases)
+    ph = phases.as_dict()
+    up_gb = ds.n * ds.V.shape[1] * 4 / 1e9
+    rate = up_gb / (ph["search/window_upload"]["ms"] / 1e3)
+    log(f"[{tag}] phases (fenced run): {json.dumps(ph)}; window upload "
+        f"{up_gb:.3f} GB of vectors at {rate:.2f} GB/s")
+
+    sub = ref["sub"]
+    rec = recall_at_k(ids[:64], ref["oids"], dists[:64], ref["odists"])
+    res = compare_distances(
+        recompute_result_distances(ds, sub, ids[:64].astype(np.int64)), ref["oracle_d"])
+    log(f"[{tag}] oracle (64 queries): recall@100={rec} dist={res.status} "
+        f"max|Δ|={res.max_abs_diff}")
+    assert rec == 1.0 and res.ok, (rec, res)
+    full = compare_distances(
+        recompute_result_distances(ds, qs, ids.astype(np.int64)),
+        recompute_result_distances(ds, qs, batched_ids.astype(np.int64)))
+    log(f"[{tag}] vs the batched K1 engine on the bf16 plane, all {qs.m} queries: "
+        f"{full.status} max|Δ|={full.max_abs_diff} beyond={full.num_exceeding}")
+    assert full.ok, full
+    del eng
+    torch.cuda.empty_cache()
+    return dict(qps=qs.m / wall, launches=launches, bodies=bodies, lane_bodies=lane_bodies,
+                window=win, max_abs_err=win["max_abs_err"], reruns=reruns,
+                upload_gb_s=rate, phases=ph)
+
+
+# Phase 9: experiments/ivf_scale.py's own settings.
+IVF_ROWS, IVF_QUERIES, IVF_CLUSTERS, IVF_CATEGORIES = 10_000_000, 4096, 1000, 1000
+
+
+def path_ivf() -> dict:
+    """Phase 9: the IVF engine at ``experiments/ivf_scale.py``'s settings:
+    10⁷ clustered rows, 4096 type-0 queries from the same centres, cap
+    1024, query_batch 1024, the engine's defaults otherwise (nprobe 16).
+    The index is built on the card (k-means included); recall@100 on 64
+    oracle queries must be ≥ 0.99. The engine reaches no scan kernel."""
+    tag = "D=1e+07 clustered ivf"
+    t0 = time.perf_counter()
+    ds = generate_dataset(IVF_ROWS, seed=0, categories=IVF_CATEGORIES, clusters=IVF_CLUSTERS)
+    qs = generate_queries(IVF_QUERIES, seed=1, categories=IVF_CATEGORIES,
+                          clusters=IVF_CLUSTERS, centers_seed=0, types=(0,))
+    log(f"[{tag}] data {time.perf_counter() - t0:.1f} s")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    eng = get_engine("ivf")(ds, device=DEV, cap=1024, query_batch=1024)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    idx = eng.index
+    log(f"[{tag}] index built on the card in {build_s:.1f} s: buckets={idx.num_buckets} "
+        f"n_pad={idx.n_pad} cap={idx.cap} nprobe={eng.nprobe} B={eng.query_batch}")
+    t0 = time.perf_counter()
+    sub = QuerySet(qtype=qs.qtype[:64], v=qs.v[:64], l=qs.l[:64], r=qs.r[:64], V=qs.V[:64])
+    oids, odists = search_oracle_batched(ds, sub)
+    log(f"[{tag}] oracle, 64 queries: {time.perf_counter() - t0:.1f} s")
+    eng.search(qs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids, dists = eng.search(qs)
+    wall = time.perf_counter() - t0
+    route = dict(eng.last_route)
+    launches = dict(kernels.launches)
+    rec = recall_at_k(ids[:64], oids, dists[:64], odists)
+    true_d = recompute_result_distances(ds, qs, ids.astype(np.int64))
+    log(f"[{tag}] search {qs.m} queries: {wall:.3f} s = {qs.m / wall:.1f} QPS; "
+        f"route {route}; recall@100 (64 oracle queries) = {rec}; launches {launches}")
+    assert rec >= 0.99, rec
+    assert np.abs(dists - true_d).max() <= 0.002 and (np.diff(dists, axis=1) >= -1e-6).all()
+    assert sum(launches.values()) == 0, launches
+    phases = PhaseTimer(device=DEV)
+    eng.search(qs, phases=phases)
+    log(f"[{tag}] phases (fenced run): {json.dumps(phases.as_dict())}")
+    del eng, idx
+    torch.cuda.empty_cache()
+    return dict(qps=qs.m / wall, build_s=build_s, recall=rec, route=route)
+
+
+HARNESS_ROWS, HARNESS_QUERIES = 100_000, 1000
+
+
+def path_harness() -> dict:
+    """Phase 10: the CLI in process on the card: gen-data 10⁵ and
+    gen-queries 10³ (100 categories), build-index of both kinds, ``run`` of
+    every ported engine but the oracle (paged resilient with 16384-row
+    windows, partitioned and ivf from their checkpoints, batched once more
+    under ``--profile``), and ``compare`` of the exact engines."""
+    from hvq_tpu_torch.cli.main import main as cli
+
+    tag = "harness"
+    dev = DEV.type
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        data, query = os.path.join(d, "data.bin"), os.path.join(d, "query.bin")
+        assert cli(["gen-data", data, str(HARNESS_ROWS), "--categories", "100"]) == 0
+        assert cli(["gen-queries", query, str(HARNESS_QUERIES), "--categories", "100"]) == 0
+        for kind in ("partitioned", "ivf"):
+            t0 = time.perf_counter()
+            assert cli(["build-index", "--data", data, "--kind", kind,
+                        "--out", os.path.join(d, f"{kind}.npz"), "--device", dev]) == 0
+            log(f"[{tag}] build-index --kind {kind}: {time.perf_counter() - t0:.1f} s")
+        runs = {
+            "batched": [],
+            "partitioned": ["--index", os.path.join(d, "partitioned.npz")],
+            "paged": ["--resilient", "--engine-opt", "window_rows=16384"],
+            "ivf": ["--index", os.path.join(d, "ivf.npz")],
+            "profiled": ["--profile", os.path.join(d, "trace")],
+        }
+        kernels.reset_launches()
+        for name, extra in runs.items():
+            engine = "batched" if name == "profiled" else name
+            t0 = time.perf_counter()
+            assert cli(["run", "--data", data, "--queries", query, "--engine", engine,
+                        "--device", dev, "--output", os.path.join(d, f"{name}.bin"),
+                        *extra]) == 0
+            out[name] = time.perf_counter() - t0
+            log(f"[{tag}] run --engine {engine} {' '.join(extra)}: {out[name]:.1f} s")
+        launches = dict(kernels.launches)
+        log(f"[{tag}] launches over the runs: {launches}")
+        assert launches["packed_scan_v3"] >= 3, launches
+        trace = os.path.join(d, "trace", "trace.json")
+        assert os.path.getsize(trace) > 0
+        rc = cli(["compare", *(os.path.join(d, f"{e}.bin")
+                               for e in ("batched", "partitioned", "paged"))])
+        assert rc == 0, rc
+    return dict(run_s=out, launches=launches)
+
+
 def kernel_entries(r6: dict, r7: dict, r8: dict, worst: dict, cert: dict,
-                   deterministic: dict, library: str) -> list:
+                   deterministic: dict, library: str, paged: dict | None = None) -> list:
     """The kernels line's entries of K1–K4 from the main paths' results
-    (phases 4–7), phase 3's worst errors, phase 3b's certificate ratios and
-    phase 3c's deterministic cases."""
-    paths = [r6["v3"], r6["v1"], r6["v2"], r7, r8]
+    (phases 4–7, and phase 8's paged engine when given), phase 3's worst
+    errors, phase 3b's certificate ratios and phase 3c's deterministic
+    cases."""
+    paths = [r6["v3"], r6["v1"], r6["v2"], r7, r8] + ([paged] if paged else [])
     timing = ("ms", "plain_ms", "bound_ms", "bound_by", "product_only_matmul_ms")
     entries = []
     for name, impl in (("packed_scan_v3", "v3"), ("packed_scan", "v1"),
@@ -1043,6 +1274,15 @@ def kernel_entries(r6: dict, r7: dict, r8: dict, worst: dict, cert: dict,
                          "d1e7_bf16": {k: r7[k] for k in timing},
                          "window_d1e7_bf16": {k: r8["window"][k] for k in timing},
                      })
+            if paged:
+                # K1 at the paged engine's window (phase 8, fp32 plane)
+                e.update(max_abs_err=max(e["max_abs_err"], paged["max_abs_err"]),
+                         ms_paged_window_d1e7_fp32=paged["window"]["ms"],
+                         plain_ms_paged_window_d1e7_fp32=paged["window"]["plain_ms"],
+                         qps_paged_d1e7=paged["qps"],
+                         launches_paged=paged["launches"][name])
+                e["shapes"]["paged_window_d1e7_fp32"] = {k: paged["window"][k]
+                                                         for k in timing}
         entries.append(e)
     return entries
 
@@ -1066,9 +1306,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     r7, reused = path_d1e7()
     r8 = path_partitioned(reused)
+    ds, qs, _, ref, batched_ids = reused
     del reused
+    torch.cuda.empty_cache()
+    r9 = path_paged(ds, qs, ref, batched_ids)
+    del ds, qs, ref, batched_ids
+    r10 = path_ivf()
+    r11 = path_harness()
+    log(f"paged {r9['qps']:.1f} QPS, ivf {r10['qps']:.1f} QPS (recall {r10['recall']}), "
+        f"harness runs {r11['run_s']}")
     library = os.path.basename(kernels.build_info["path"])
-    entries = kernel_entries(r6, r7, r8, worst, cert, deterministic, library) + probes
+    entries = kernel_entries(r6, r7, r8, worst, cert, deterministic, library,
+                             paged=r9) + probes
     log(card)
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {

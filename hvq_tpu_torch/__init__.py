@@ -12,14 +12,19 @@ Package layout::
 
     hvq_tpu_torch/
       constants.py  record widths, k, the 0.002 tolerance
-      models/  engines (batched and partitioned exact), device database,
-               shared finalize, the NumPy oracle
-      index/   sorted views of the partitioned engine (host range routing)
-      ops/     distances, masks, top-k, the packed scan and its kernels
+      models/  engines (batched, partitioned and paged exact; IVF
+               approximate), device database, shared finalize, the NumPy
+               oracle
+      index/   sorted views of the partitioned engine (host range routing),
+               the IVF index, ``.npz`` checkpoints of both
+      ops/     distances, masks, top-k, k-means, the packed scan and its
+               kernels
       csrc/    hand-written CUDA kernels (built with nvcc at first use)
       utils/   binary formats, generators, comparator, phase timers,
-               kernel-vs-plain agreement checks
-      cli/     ``python -m hvq_tpu_torch.cli run``
+               kernel-vs-plain agreement checks, retry + OOM bisection,
+               torch.profiler traces
+      cli/     ``python -m hvq_tpu_torch.cli run | compare | build-index |
+               gen-data | gen-queries``
       tools/   ``python -m hvq_tpu_torch.tools.profile_partitioned``
 """
 

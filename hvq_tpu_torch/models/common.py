@@ -23,6 +23,9 @@ from hvq_tpu_torch.ops.distance import exact_distances, tile_scores
 from hvq_tpu_torch.ops.masks import block_mask
 from hvq_tpu_torch.ops.topk import final_topk, merge_topk
 
+# Elements of the (B, rows) score block a listed-tile scan holds at once.
+_STREAM_CHUNK = 1 << 26
+
 
 class QueryBatch(NamedTuple):
     """Decoded query batch (B queries) on the device."""
@@ -46,6 +49,7 @@ def scan_database(
     db_tile: int,
     precision: str = "highest",
     oid: torch.Tensor | None = None,
+    tile_index=None,
 ):
     """Streaming masked-distance top-k' over every tile (no bin reduce).
 
@@ -55,21 +59,38 @@ def scan_database(
     each row of a reordered view; the sample limit then tests
     ``oid < sn`` (the reference's file order), and the returned ids stay
     view positions for a local refinement gather (``finalize(oid=)``).
+
+    ``tile_index`` (a host sequence of tile numbers): scan only the listed
+    tiles (the IVF engine's probed buckets); an entry of -1 marks a
+    padding slot, a tile masked to +inf, so it contributes nothing. The
+    listed tiles are scored ``_STREAM_CHUNK`` elements at a time, one
+    top-k′ merge per chunk: the same candidate set as a merge per tile, up
+    to which of two equal scores survives the cut.
     """
     B = qb.qV.shape[0]
     device = Vp.device
     scores = torch.full((B, kprime), float("inf"), device=device)
     ids = torch.zeros((B, kprime), dtype=torch.int32, device=device)
     lane = torch.arange(db_tile, dtype=torch.int32, device=device)
-    for base in range(0, Vp.shape[0], db_tile):
-        rows = slice(base, base + db_tile)
-        pos = lane + base
+
+    def merge(scores, ids, rows, pos):
         s = tile_scores(qb.qV, Vp[rows], dn[rows], precision)
         gid = pos if oid is None else oid[rows]
         ok = block_mask(C[rows], T[rows], gid, sn, qb.active_c, qb.v,
                         qb.active_t, qb.l, qb.r)
         s = s.masked_fill(~ok, float("inf"))
-        scores, ids = merge_topk(scores, ids, s, pos.expand(B, -1), kprime)
+        return merge_topk(scores, ids, s, pos.expand(B, -1), kprime)
+
+    if tile_index is None:
+        for base in range(0, Vp.shape[0], db_tile):
+            scores, ids = merge(scores, ids, slice(base, base + db_tile), lane + base)
+        return scores, ids
+    tiles = np.asarray(tile_index, np.int64)
+    tiles = torch.from_numpy(tiles[tiles >= 0]).to(device)
+    step = max(1, _STREAM_CHUNK // max(1, B * db_tile))
+    for c in range(0, tiles.numel(), step):
+        pos = (tiles[c : c + step, None].to(torch.int32) * db_tile + lane).reshape(-1)
+        scores, ids = merge(scores, ids, pos.long(), pos)
     return scores, ids
 
 

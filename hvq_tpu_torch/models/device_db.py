@@ -68,6 +68,42 @@ def upload_async(host: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
+class PinnedStaging:
+    """One reusable host buffer of ``rows`` × ``cols`` fp32 for large
+    host → device copies, pinned when it is bound for a CUDA device.
+
+    :meth:`upload` copies a host slab (a slice of an ``np.memmap`` too)
+    into the buffer once and starts the device copy without waiting for
+    it. Before the buffer is written again, the next call waits on an
+    event recorded after the last copy, so a copy never reads a buffer
+    that is being overwritten. The buffer is allocated at first use.
+    """
+
+    def __init__(self, rows: int, cols: int, device: torch.device):
+        self.shape = (int(rows), int(cols))
+        self.device = device
+        self._buf: torch.Tensor | None = None
+        self._copied: torch.cuda.Event | None = None
+
+    def upload(self, host: np.ndarray) -> torch.Tensor:
+        """(r, cols) host rows → a (r, cols) fp32 device tensor."""
+        r = host.shape[0]
+        if r > self.shape[0] or host.shape[1:] != self.shape[1:]:
+            raise ValueError(f"{host.shape} does not fit the staging buffer {self.shape}")
+        if self.device.type != "cuda":
+            return torch.from_numpy(np.array(host, np.float32))
+        if self._buf is None:
+            self._buf = torch.empty(self.shape, dtype=torch.float32, pin_memory=True)
+        if self._copied is not None:
+            self._copied.synchronize()      # the last copy has read the buffer
+        stage = self._buf[:r]
+        stage.numpy()[:] = host
+        out = stage.to(self.device, non_blocking=True)
+        self._copied = torch.cuda.Event()
+        self._copied.record(torch.cuda.current_stream(self.device))
+        return out
+
+
 def upload_scan_plane(V_scan, shape: tuple, device: torch.device) -> torch.Tensor:
     """A bf16 scan plane carried over from arrays: any dtype that converts
     to fp32 exactly (bfloat16, or bf16-valued fp32), stored as bf16."""

@@ -19,7 +19,9 @@ from typing import Callable
 # the JAX package's; it accepts and ignores ``device=``.
 _ENGINES = {
     "batched": ("hvq_tpu_torch.models.batched", "BatchedEngine"),
+    "ivf": ("hvq_tpu_torch.models.ivf", "IVFEngine"),
     "oracle": ("hvq_tpu_torch.models.oracle", "OracleEngine"),
+    "paged": ("hvq_tpu_torch.models.paged", "PagedEngine"),
     "partitioned": ("hvq_tpu_torch.models.partitioned", "PartitionedEngine"),
 }
 

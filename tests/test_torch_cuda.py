@@ -678,3 +678,96 @@ def test_probe_wrappers_count_their_launches_and_raise(cuda):
         probe_kernels.int8_probe(q, d[:, :, :512], "int8->i32")   # not contiguous
     with pytest.raises(ValueError):
         probe_kernels.trivial(torch.ones(8, device=cuda, dtype=torch.float64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scan_store", ["fp32", "bf16"])
+def test_paged_window_k1_matches_plain_with_global_oid(cuda, scan_store):
+    """K1 over one resident window of the paged engine: ``oid`` holds the
+    GLOBAL ids (padding rows n), the sample limit sn < n cuts the window in
+    two, and positions stay local to the window."""
+    from hvq_tpu_torch import get_engine
+
+    ds = generate_dataset(40000, seed=12, categories=30)
+    qs = generate_queries(64, seed=13, categories=30)
+    eng = get_engine("paged")(ds, device=cuda, window_rows=16384, scan_store=scan_store)
+    assert eng.scan_impl == "v3" and len(eng.windows) == 3
+    w0, wlen = eng.windows[1]
+    win = eng._upload_window(w0, wlen)
+    Vw, Vs, Cw, Tw, dnw, oidw = win
+    assert Vs.data_ptr() % 16 == 0 and int(oidw[0]) == w0
+    from hvq_tpu_torch.models.batched import pack_query_block, unpack_query_block
+
+    Q = pack_query_block(qs.V, qs.qtype, qs.v, qs.l, qs.r)
+    qb = unpack_query_block(torch.from_numpy(Q).to(cuda))
+    sn = w0 + wlen // 2
+    args = (Vs, Cw, Tw, dnw, oidw, qb.qV, *qb[1:])
+    kw = dict(db_tile=eng.db_tile, bin_top=eng.bin_top)
+    d_k, p_k = kernels.packed_scan_v3(*args, sn, **kw)
+    d_p, p_p = packed_scan_plain(*args, sn, **kw)
+    torch.cuda.synchronize()
+    rel = 8e-3 if scan_store == "bf16" else REL_MM
+    a = scan_agreement(d_k, p_k, d_p, p_p, kw["bin_top"], kw["db_tile"] // 128,
+                       (qb.qV * qb.qV).sum(1), float(dnw.max()), rel)
+    assert a["ok"], a
+    kept = p_k[torch.isfinite(d_k)]
+    assert int(kept.max()) < wlen // 2 and int(kept.min()) >= 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scan_store", ["fp32", "bf16"])
+def test_paged_engine_on_cuda_matches_oracle_through_k1(cuda, scan_store):
+    """K1 launches = windows × batches (the rerun is the streaming scan),
+    all on the tensor-core body (windows of 8 tiles: R ≤ 8); each window is
+    uploaded once."""
+    from hvq_tpu_torch import get_engine
+
+    ds = generate_dataset(300000, seed=14, categories=30)
+    qs = generate_queries(80, seed=15, categories=30)
+    eng = get_engine("paged")(ds, device=cuda, window_rows=8 * 16384, query_batch=32,
+                              scan_store=scan_store)
+    assert len(eng.windows) == 3 and eng.bin_top <= 8
+    uploads = []
+    orig = eng._upload_window
+    eng._upload_window = lambda w0, wlen: uploads.append(w0) or orig(w0, wlen)
+    kernels.reset_launches()
+    ids, dists = eng.search(qs)
+    nb = -(-qs.m // 32)
+    assert kernels.launches["packed_scan_v3"] == len(eng.windows) * nb
+    assert kernels.k1_body_launches == {"wgmma": len(eng.windows) * nb, "simt": 0}
+    assert uploads == [w0 for w0, _ in eng.windows]
+    oids, odists = search_oracle(ds, qs)
+    assert recall_at_k(ids, oids, dists, odists) == 1.0
+    res = compare_distances(recompute_result_distances(ds, qs, ids.astype(np.int64)),
+                            recompute_result_distances(ds, qs, oids.astype(np.int64)))
+    assert res.ok, res
+
+
+@pytest.mark.cuda
+def test_ivf_engine_on_cuda_matches_the_cpu_port_on_a_carried_index(cuda):
+    """The same index (built on the CPU, carried to the card with
+    ``from_host``) and queries: recomputed distances within 0.002 on the
+    flat, streaming and exact routes; no scan kernel launches."""
+    from hvq_tpu_torch.index.ivf import IVFIndex
+    from hvq_tpu_torch.models.ivf import IVFEngine
+
+    ds = generate_dataset(20000, seed=3, categories=8, clusters=64)
+    host = IVFIndex.build(ds, cap=256, iters=4, device="cpu")
+    fields = {f: getattr(host, f) for f in ("Vp", "C", "T", "oid", "d_norms", "centroids",
+                                            "c_norms")}
+    idx = IVFIndex.from_host(**{f: t.numpy() for f, t in fields.items()}, n=host.n,
+                             cap=host.cap, scan_tile=host.scan_tile, cat_vals=host.cat_vals,
+                             cat_freq=host.cat_freq, t_sample=host.t_sample, device=cuda)
+    qs = generate_queries(64, seed=4, categories=8, clusters=64, centers_seed=3)
+    kernels.reset_launches()
+    for kw in ({}, dict(flat_budget_bytes=0)):
+        want = IVFEngine(ds, index=host, device="cpu", nprobe=8, query_batch=16, **kw)
+        got = IVFEngine(ds, index=idx, device=cuda, nprobe=8, query_batch=16, **kw)
+        ids_w, d_w = want.search(qs)
+        ids_g, d_g = got.search(qs)
+        assert got.last_route == want.last_route
+        np.testing.assert_allclose(
+            recompute_result_distances(ds, qs, ids_g.astype(np.int64)),
+            recompute_result_distances(ds, qs, ids_w.astype(np.int64)), atol=0.002, rtol=0)
+        np.testing.assert_allclose(d_g, d_w, atol=0.002, rtol=0)
+    assert sum(kernels.launches.values()) == 0

@@ -167,10 +167,10 @@ def test_from_arrays_rejects_a_scan_plane_bf16_cannot_hold():
 
 
 def test_registry():
-    assert available_engines() == ["batched", "oracle", "partitioned"]
+    assert available_engines() == ["batched", "ivf", "oracle", "paged", "partitioned"]
     assert get_engine("batched") is BatchedEngine
     with pytest.raises(KeyError):
-        get_engine("paged")
+        get_engine("sharded")
     ds = generate_dataset(500, seed=38, categories=10)
     qs = generate_queries(4, seed=39, categories=10)
     ids, _ = get_engine("oracle")(ds, device="cpu").search(qs)

@@ -128,23 +128,46 @@ def _view_arrays(n_pad=256):
 @pytest.mark.parametrize("name", ["BatchedEngine", "PartitionedEngine",
                                   "DeviceDB.from_dataset", "DeviceDB.from_arrays",
                                   "SortedView.from_arrays", "PartitionedIndex.build",
-                                  "PartitionedIndex.from_arrays"])
-def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch, name):
-    """Every engine and view builder defaults to ``device="cuda"``; with
-    the card hidden that default raises a clear error, never a CPU run."""
+                                  "PartitionedIndex.from_arrays", "PagedEngine",
+                                  "IVFEngine", "IVFIndex.build", "IVFIndex.from_host",
+                                  "load_index"])
+def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch, tmp_path, name):
+    """Every engine, view and index constructor and the checkpoint loader
+    defaults to ``device="cuda"``; with the card hidden that default raises
+    a clear error, never a CPU run."""
+    from hvq_tpu_torch.index import serialize
+    from hvq_tpu_torch.index.ivf import IVFIndex
     from hvq_tpu_torch.index.partition import PartitionedIndex, SortedView
     from hvq_tpu_torch.models.batched import BatchedEngine
     from hvq_tpu_torch.models.device_db import DeviceDB
+    from hvq_tpu_torch.models.ivf import IVFEngine
+    from hvq_tpu_torch.models.paged import PagedEngine
     from hvq_tpu_torch.models.partitioned import PartitionedEngine
 
     owner, _, attr = name.partition(".")
     fn = {"BatchedEngine": BatchedEngine, "PartitionedEngine": PartitionedEngine,
           "DeviceDB": DeviceDB, "SortedView": SortedView,
-          "PartitionedIndex": PartitionedIndex}[owner]
+          "PartitionedIndex": PartitionedIndex, "PagedEngine": PagedEngine,
+          "IVFEngine": IVFEngine, "IVFIndex": IVFIndex,
+          "load_index": serialize.load_index}[owner]
     fn = getattr(fn, attr) if attr else fn
     assert inspect.signature(fn).parameters["device"].default == "cuda"
     ds, view = _tiny_ds(), _view_arrays()
+    ivf_arrays = dict(Vp=view.Vp, C=view.C, T=view.T, oid=view.oid, d_norms=view.d_norms,
+                      centroids=np.zeros((2, 128), np.float32),
+                      c_norms=np.zeros(2, np.float32), n=200, cap=128, scan_tile=128,
+                      cat_vals=np.zeros(1, np.float32), cat_freq=np.ones(1),
+                      t_sample=np.zeros(1, np.float32))
+    ckpt = tmp_path / "ivf.npz"
+    np.savez(ckpt, __kind__=np.array("ivf"), __version__=np.array(1),
+             meta=np.array([200, 128, 128]),
+             **{k: v for k, v in ivf_arrays.items() if isinstance(v, np.ndarray)})
     call = {
+        "PagedEngine": lambda: PagedEngine(ds, db_tile=128, window_rows=128),
+        "IVFEngine": lambda: IVFEngine(ds, cap=128),
+        "IVFIndex.build": lambda: IVFIndex.build(ds, cap=128),
+        "IVFIndex.from_host": lambda: IVFIndex.from_host(**ivf_arrays),
+        "load_index": lambda: serialize.load_index(ckpt),
         "BatchedEngine": lambda: BatchedEngine(ds, query_batch=8),
         "PartitionedEngine": lambda: PartitionedEngine(ds, db_tile=128),
         "DeviceDB.from_dataset": lambda: DeviceDB.from_dataset(ds, db_tile=128),
@@ -377,3 +400,67 @@ def test_lane_body_launches_count_bin_scan_and_reset_zeroes_them():
     kernels.lane_body_launches["bin_scan"]["simt"] = 1
     kernels.reset_launches()
     assert kernels.lane_body_launches["bin_scan"] == {"wgmma": 0, "simt": 0}
+
+
+def test_paged_ivf_and_harness_modules_leave_jax_unloaded():
+    """The paged and IVF engines searching on the CPU, a checkpoint round
+    trip, the resilience and profiling helpers and every CLI subcommand's
+    help, in one fresh interpreter: no module of jax or the JAX package."""
+    proc = _run(
+        "import runpy, sys, tempfile, os\n"
+        "from hvq_tpu_torch import available_engines, get_engine\n"
+        "from hvq_tpu_torch.index import serialize\n"
+        "from hvq_tpu_torch.utils import profiling, resilience\n"
+        "from hvq_tpu_torch.utils.generators import generate_dataset, generate_queries\n"
+        "assert available_engines() == ['batched', 'ivf', 'oracle', 'paged', 'partitioned']\n"
+        "ds = generate_dataset(3000, seed=1, categories=20, clusters=8)\n"
+        "qs = generate_queries(8, seed=2, categories=20)\n"
+        "eng = get_engine('paged')(ds, device='cpu', db_tile=512, window_rows=1024,\n"
+        "                          query_batch=8)\n"
+        "ids, _ = resilience.ResilientEngine(eng).search(qs)\n"
+        "assert ids.shape == (8, 100) and len(eng.windows) == 3\n"
+        "ivf = get_engine('ivf')(ds, device='cpu', cap=128, kmeans_iters=2)\n"
+        "assert ivf.search(qs)[0].shape == (8, 100)\n"
+        "p = os.path.join(tempfile.mkdtemp(), 'ivf.npz')\n"
+        "serialize.save_ivf(ivf.index, p)\n"
+        "assert serialize.load_index(p, device='cpu').n == 3000\n"
+        "for cmd in ('run', 'compare', 'build-index', 'gen-data', 'gen-queries'):\n"
+        "    sys.argv = ['hvq_tpu_torch', cmd, '--help']\n"
+        "    try:\n"
+        "        runpy.run_module('hvq_tpu_torch.cli', run_name='__main__')\n"
+        "    except SystemExit as e:\n"
+        "        assert e.code == 0\n"
+        + _FOREIGN
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_chip_smoke_kernels_line_carries_the_paged_k1_launches():
+    """On synthetic numbers: with phase 8's result, K1's entry counts the
+    paged launches in its total and carries the paged window's shape, time
+    and QPS; without it the entry is as before."""
+    cs = _chip_smoke()
+    r6 = {"v3": _path("packed_scan_v3"), "v1": _path("packed_scan"),
+          "v2": _path("packed_scan_v2"),
+          "k4": dict(ms=5.5, plain_ms=50.7, bound_ms=1.252, bound_by="operations",
+                     bound_fp32_simt_ms=3.08, product_only_matmul_ms=5.6, launches=1,
+                     bodies={"wgmma": 1, "simt": 0}, max_abs_err=0.002)}
+    win = dict(ms=7.0, plain_ms=300.0, bound_ms=1.0, bound_by="operations",
+               product_only_matmul_ms=4.0)
+    r8 = dict(_path("packed_scan_v3"), window=win)
+    paged = dict(_path("packed_scan_v3"), window=dict(win, ms=9.5), qps=4321.0,
+                 max_abs_err=0.02)
+    paged["launches"]["packed_scan_v3"] = 50
+    paged["bodies"] = {"wgmma": 50, "simt": 0}
+    names = ("packed_scan_v3", "packed_scan", "packed_scan_v2", "bin_scan")
+    args = (r6, _path("packed_scan_v3"), r8, dict.fromkeys(names, 0.001),
+            dict.fromkeys(names, {}), dict.fromkeys(names, 7), "lib.so")
+    k1 = cs.kernel_entries(*args, paged=paged)[0]
+    before = cs.kernel_entries(*args)[0]
+    assert k1["name"] == "packed_scan_v3" and before["launches"] == 30
+    assert k1["launches"] == 80 and k1["launches_paged"] == 50
+    assert k1["bodies"] == {"wgmma": 80, "simt": 0}
+    assert k1["ms_paged_window_d1e7_fp32"] == 9.5 and k1["qps_paged_d1e7"] == 4321.0
+    assert k1["shapes"]["paged_window_d1e7_fp32"]["ms"] == 9.5
+    assert k1["max_abs_err"] == 0.02 and "launches_paged" not in before
