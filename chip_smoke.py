@@ -85,20 +85,44 @@ Phases, in order; any failure exits non-zero with a traceback:
    query_batch 1024): the index built on the card (k-means included),
    QPS after a warm-up, recall@100 ≥ 0.99 on 64 oracle queries, and no
    scan kernel launched;
+9a. the ``sharded`` engine over phase 6's 10⁷ host rows and 10⁴ queries
+   on the fp32 plane, B 1024, on a mesh of 4 virtual shards of the card
+   (n_pad 10,027,008, 153 tiles a shard): one database copy of card
+   memory; K1 at the shard's shape (a slab view at an offset) held to its
+   plain version and, bit for bit, to K1 on a copy of the slab, then
+   timed; after a warm-up the timed search (K1 = 4 × (batches + rung-1
+   runs), all on the tensor-core body), a fenced phase run (per-shard
+   scan, select, refine, merge, finalize, certificate, fetch, rerun),
+   recall and ``.dist`` on the 64 oracle queries and every query within
+   0.002 of phase 6's batched answer; then the same on a 1-shard mesh;
+9b. ``sharded`` with ``scan_impl="pallas"`` (K3 per shard, Dt 8192) on
+   phase 4's 10⁶ rows and queries, on a 2×2 (q, d) mesh of the card: the
+   same checks, K3 at the shard's shape, held to phase 4's streaming
+   answer;
+9c. ``partitioned_sharded`` over phase 6's rows on the bf16 plane with
+   phase 7's 4·10⁴ queries, 4 virtual shards: a warm-up (the time view),
+   the timed search (K1 = 4 × (full batches + rung-1 runs), no windowed
+   batch, routed groups homed to their shards, straddling spans dense),
+   a fenced phase run, recall and ``.dist`` on the oracle queries, and
+   every query within 0.002 of phase 7's partitioned answer; each mesh
+   phase prints its peak of card memory and frees its engine;
 10. the CLI in process: gen-data 10⁵ and gen-queries 10³, build-index of
    both kinds, ``run`` of batched, partitioned (from its checkpoint),
-   paged (``--resilient``, 16384-row windows), ivf (from its checkpoint)
+   paged (``--resilient``, 16384-row windows), ivf (from its checkpoint),
+   sharded and partitioned_sharded (the default mesh: every visible card)
    and batched under ``--profile`` (a Chrome trace), then ``compare`` of
    the exact engines' ``.dist`` files ("same" or "similar").
 
 Each path runs with the launch counts set to 0 just before it and read
 just after; the launches of K1, K3, K2 and K4 are also counted per body,
 and every launch of theirs on a main path must run the tensor-core body.
-K1 is timed at its four main-path shapes (D=10⁶ fp32, D=10⁷ bf16, the
-partitioned window, the paged window), K3 and K2 at theirs (D=10⁶, Dt=8192, R=4), K4 at
-its own, each beside its bound, its plain version and ``torch.matmul``
-of the same bf16 passes alone (product only: not the same function, and
-the port never calls it). The last three lines are the card (``nvidia-smi`` name, power
+K1 is timed at its five main-path shapes (D=10⁶ fp32, D=10⁷ bf16, the
+partitioned window, the paged window, a mesh shard), K3 and K2 at theirs
+(D=10⁶, Dt=8192, R=4; K3 also at a mesh shard), K4 at its own, each
+beside its bound, its plain version and ``torch.matmul`` of the same bf16
+passes alone (product only: not the same function, and the port never
+calls it). The mesh shards are virtual: all on the one card, so what a
+mesh of several cards pays on their links is not measured here. The last three lines are the card (``nvidia-smi`` name, power
 limit), a JSON object describing each kernel (K1–K4, then each probe
 kernel and variant, whose launches are those of phase 3d's timing runs)
 with its time, bound and launches, and ``{"ok": true, "device": {...}}``.
@@ -132,6 +156,7 @@ from hvq_tpu_torch.models.device_db import DeviceDB  # noqa: E402
 from hvq_tpu_torch.ops import kernels, probe_kernels  # noqa: E402
 from hvq_tpu_torch.ops.distance import require_ieee_fp32  # noqa: E402
 from hvq_tpu_torch.ops.masks import query_predicate_fields  # noqa: E402
+from hvq_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
 from hvq_tpu_torch.tools import int8_probe, pallas_probe, v3_anatomy  # noqa: E402
 from hvq_tpu_torch.tools.card import (  # noqa: E402
     PEAK_BF16, PEAK_FP32, PEAK_INT8, bound as card_bound, card_line, event_ms)
@@ -880,8 +905,10 @@ def dataset(n: int, seed: int, tag: str):
     return ds, qs
 
 
-def paths_d1e6(seed: int = 100) -> dict:
-    """Phases 4–5: K1, K3 and K2 engines and K4 over one D=10⁶ dataset."""
+def paths_d1e6(seed: int = 100):
+    """Phases 4–5: K1, K3 and K2 engines and K4 over one D=10⁶ dataset.
+    Returns their results and what phase 9b reuses: the dataset, queries
+    and references."""
     tag = "D=1e+06 fp32"
     ds, qs = dataset(1_000_000, seed, tag)
     out = {}
@@ -898,7 +925,7 @@ def paths_d1e6(seed: int = 100) -> dict:
         out[impl] = run_engine(f"{tag} {impl}", eng, ds, qs, ref, seed)
         del eng, out[impl]["ids"]
     out["k4"] = k4_path(tag, lane_db, qs)
-    return out
+    return out, (ds, qs, ref)
 
 
 def path_d1e7(seed: int = workload.PARTITIONED_SEED):
@@ -1013,7 +1040,7 @@ def path_partitioned(reused, seed: int = workload.PARTITIONED_SEED) -> dict:
     assert full.ok, full
     return dict(qps=qs.m / wall, launches=launches, bodies=bodies,
                 lane_bodies=lane_bodies, route=route, window=win,
-                max_abs_err=win["max_abs_err"])
+                max_abs_err=win["max_abs_err"], ids=ids)
 
 
 def paged_window_vs_plain(tag, eng, qs) -> dict:
@@ -1174,6 +1201,257 @@ def path_ivf() -> dict:
     return dict(qps=qs.m / wall, build_s=build_s, recall=rec, route=route)
 
 
+# Phases 9a–9c: the mesh engines on virtual shards of the one card.
+MESH_SHARDS = 4
+
+
+def virtual_mesh(n_d: int, n_q: int = 1):
+    """A (n_q, n_d) mesh of virtual shards, every one on this card."""
+    return make_mesh(n_d, n_q, devices=[DEV] * (n_d * n_q))
+
+
+def peak_gb(tag: str) -> None:
+    """Log the peak of allocated card memory since the last reset (the
+    build and the kernel checks, or the search), then reset it."""
+    log(f"[{tag}] torch.cuda.max_memory_allocated: "
+        f"{torch.cuda.max_memory_allocated(DEV) / 1e9:.3f} GB")
+    torch.cuda.reset_peak_memory_stats(DEV)
+
+
+def shard_kernel_vs_plain(tag, eng, qs) -> dict:
+    """The mesh engine's kernel (K1, or K3 for ``scan_impl="pallas"``) at
+    one shard's shape: shard 1's slab (a view at an offset into the one
+    upload) at the q row's batch, against its plain version and, bit for
+    bit, against the kernel on a contiguous copy of the slab; rerun twice
+    bit for bit; then timed beside its bound, its plain version and its
+    passes' product alone."""
+    name = IMPL_KERNEL[eng.scan_impl]
+    slab = eng.slabs[0][1]
+    B, rows, R = eng.query_batch // eng.n_q, slab.Vp.shape[0], eng.bin_top
+    plane = slab.Vs if name == "packed_scan_v3" else slab.Vp
+    assert plane.untyped_storage().data_ptr() == eng.slabs[0][0].Vp.untyped_storage().data_ptr()
+    qV, fields = first_batch(qs, B)
+    args = (plane, slab.C, slab.T, slab.dn, slab.sid, qV, *fields, eng.n)
+    kw = dict(db_tile=eng.db_tile, bin_top=R)
+    fn = getattr(kernels, name)
+    got = fn(*args, **kw)
+    want = kernels.plain[name](*args, **kw)
+    agree = scan_agreement(*got, *want, R, eng.db_tile // 128, (qV * qV).sum(1),
+                           eng._dn_max, eng._rel_mm)
+    del want
+    log(f"[{tag}] {name} at the shard's shape vs plain (rows={rows}, B={B}, R={R}): {agree}")
+    assert agree["ok"], agree
+    copy = tuple(t.clone() for t in args[:5])
+    assert same_bits(got, fn(*copy, *args[5:], **kw)), f"{name} on the slab view differs"
+    del copy
+    for _ in range(2):
+        assert same_bits(got, fn(*args, **kw)), f"{name} shard rerun differs"
+    del got
+    log(f"[{tag}] {name} on the slab view = on its copy, and rerun twice: bit-identical")
+    ms = event_ms(lambda: fn(*args, **kw), 3)
+    plain_ms = event_ms(lambda: kernels.plain[name](*args, **kw), 3)
+    W = rows * R // 128
+    if name == "packed_scan_v3":
+        bnd, passes = k1_bound(plane, B, W, rows), 3
+    else:
+        bnd, passes = lane_bound(name, rows, B, W), LANE_PASSES[name]
+    bnd["product_only_matmul_ms"] = product_only_ms(plane, qV, 0, rows, passes)
+    log(f"[{tag}] {name} shard {ms:.3f} ms/call, plain {plain_ms:.3f} ms/call, {bnd}")
+    return dict(ms=ms, plain_ms=plain_ms, **bnd, max_abs_err=agree["max_abs_err"],
+                rows=rows, B=B, R=R)
+
+
+def run_mesh_search(tag, eng, ds, qs, ref, partner_d, kernel: str, seed: int) -> dict:
+    """A mesh engine's timed search after a warm-up, with the launch counts
+    set to 0 just before and read just after (``kernel`` = shards × (batches
+    + rung-1 runs), every launch on the tensor-core body, nothing else); a
+    fenced phase run; recall and ``.dist`` on the 64 oracle queries; every
+    query within 0.002 of ``partner_d`` (a different code path's recomputed
+    distances)."""
+    eng.search(generate_queries(eng.query_batch, seed=seed + 2,
+                                categories=workload.CATEGORIES))
+    torch.cuda.synchronize()
+    peak_gb(tag)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    ids, dists = eng.search(qs)
+    wall = time.perf_counter() - t0
+    search_peak = torch.cuda.max_memory_allocated(DEV) / 1e9
+    launches = dict(kernels.launches)
+    bodies = dict(kernels.k1_body_launches)
+    lane_bodies = {k: dict(v) for k, v in kernels.lane_body_launches.items()}
+    ladder = dict(eng.last_ladder)
+    log(f"[{tag}] search {qs.m} queries: {wall:.3f} s = {qs.m / wall:.1f} QPS; "
+        f"launches {launches}; K1 bodies {bodies}; K3 bodies {lane_bodies['packed_scan']}; "
+        f"ladder {ladder}; the search's peak of card memory {search_peak:.3f} GB")
+    shards = eng.n_q * eng.n_d
+    want = dict.fromkeys(kernels.launches, 0)
+    want[kernel] = shards * (-(-qs.m // eng.query_batch) + ladder.get("rung1_runs", 0))
+    assert launches == want, (launches, want)
+    got_bodies = bodies if kernel == "packed_scan_v3" else lane_bodies[kernel]
+    assert got_bodies == {"wgmma": want[kernel], "simt": 0}, got_bodies
+    if ladder["suspects"]:
+        assert ladder["rung1_bin_top"] == 2 * eng.bin_top, ladder
+    assert ids.shape == (qs.m, 100) and np.isfinite(dists).all() and (ids < ds.n).all()
+    phases = PhaseTimer(device=DEV)
+    eng.search(qs, phases=phases)
+    log(f"[{tag}] phases (fenced run): {json.dumps(phases.as_dict())}")
+    sub = ref["sub"]
+    rec = recall_at_k(ids[:64], ref["oids"], dists[:64], ref["odists"])
+    res = compare_distances(
+        recompute_result_distances(ds, sub, ids[:64].astype(np.int64)), ref["oracle_d"])
+    log(f"[{tag}] oracle (64 queries): recall@100={rec} dist={res.status} "
+        f"max|Δ|={res.max_abs_diff}")
+    assert rec == 1.0 and res.ok, (rec, res)
+    full = compare_distances(recompute_result_distances(ds, qs, ids.astype(np.int64)),
+                             partner_d)
+    log(f"[{tag}] vs its partner path, all {qs.m} queries: {full.status} "
+        f"max|Δ|={full.max_abs_diff} beyond={full.num_exceeding}")
+    assert full.ok, full
+    return dict(qps=qs.m / wall, launches=launches, bodies=bodies, lane_bodies=lane_bodies,
+                ladder=ladder, phases=phases.as_dict(), search_peak_gb=search_peak, ids=ids)
+
+
+def build_mesh_engine(tag, name, ds, mesh, **kw):
+    """The engine ``name`` on ``mesh``, with the card memory it holds after
+    its build: one database however many virtual shards share the card."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(DEV)
+    t0 = time.perf_counter()
+    eng = get_engine(name)(ds, mesh=mesh, **kw)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(DEV) - before
+    log(f"[{tag}] {name} on a {mesh.shape} mesh of {mesh.distinct()} built in "
+        f"{time.perf_counter() - t0:.1f} s; it holds {held / 1e9:.3f} GB of card memory")
+    return eng, held
+
+
+def path_sharded(ds, qs, ref, batched_ids) -> dict:
+    """Phase 9a: ``sharded`` on phase 6's 10⁷ rows and 10⁴ queries: K1 per
+    shard on the fp32 plane, B 1024, 4 virtual shards of the card (n_pad
+    10,027,008, 2,506,752 rows = 153 tiles a shard), then the same engine
+    on a 1-shard mesh. Partner: phase 6's batched K1 answer (bf16 plane)."""
+    tag = f"D=1e+07 fp32 sharded {MESH_SHARDS}"
+    partner_d = recompute_result_distances(ds, qs, batched_ids.astype(np.int64))
+    eng, held = build_mesh_engine(tag, "sharded", ds, virtual_mesh(MESH_SHARDS),
+                                  query_batch=1024)
+    log(f"[{tag}] engine: n_pad={eng.n_pad} local_n={eng.local_n} "
+        f"tiles/shard={eng.local_n // eng.db_tile} db_tile={eng.db_tile} R={eng.bin_top} "
+        f"k'={eng.kprime} B={eng.query_batch} scan_impl={eng.scan_impl}")
+    assert eng.scan_impl == "v3" and eng.certified and eng.n_pad % (MESH_SHARDS * 16384) == 0
+    db_bytes = eng.n_pad * 128 * 4
+    # one copy of the database (≈ 5.13 GB at 10⁷ rows) and its columns, not four
+    assert db_bytes <= held < 1.2 * db_bytes, (held, db_bytes)
+    shard = shard_kernel_vs_plain(tag, eng, qs)
+    r = run_mesh_search(tag, eng, ds, qs, ref, partner_d, "packed_scan_v3", seed=300)
+    r.update(shard=shard, held_gb=held / 1e9, max_abs_err=shard["max_abs_err"])
+    peak_gb(tag)
+    del eng
+    torch.cuda.empty_cache()
+    tag1 = "D=1e+07 fp32 sharded 1"
+    eng, held1 = build_mesh_engine(tag1, "sharded", ds, virtual_mesh(1), query_batch=1024)
+    log(f"[{tag1}] engine: n_pad={eng.n_pad} R={eng.bin_top}")
+    r1 = run_mesh_search(tag1, eng, ds, qs, ref, partner_d, "packed_scan_v3", seed=300)
+    r1.pop("ids")
+    r["one_shard"] = dict(r1, held_gb=held1 / 1e9)
+    log(f"[{tag}] the mesh on one card: {r['qps']:.1f} QPS on {MESH_SHARDS} virtual "
+        f"shards, {r1['qps']:.1f} on 1")
+    peak_gb(tag1)
+    del eng
+    torch.cuda.empty_cache()
+    r.pop("ids")
+    return r
+
+
+def path_sharded_k3(ds, qs, ref) -> dict:
+    """Phase 9b: ``sharded`` with ``scan_impl="pallas"`` (K3 per shard,
+    8192-row tiles) on phase 4's 10⁶ rows and 10⁴ queries, on a 2×2 (q, d)
+    mesh of the card. Partner: phase 4's streaming answer."""
+    tag = "D=1e+06 fp32 sharded K3 2x2"
+    eng, held = build_mesh_engine(tag, "sharded", ds, virtual_mesh(2, 2), query_batch=1024,
+                                  scan_impl="pallas")
+    log(f"[{tag}] engine: n_pad={eng.n_pad} local_n={eng.local_n} "
+        f"tiles/shard={eng.local_n // eng.db_tile} db_tile={eng.db_tile} R={eng.bin_top} "
+        f"k'={eng.kprime} B={eng.query_batch} scan_impl={eng.scan_impl}")
+    assert eng.scan_impl == "v1" and eng.db_tile == 8192 and eng.bin_top <= 4
+    assert eng.n_pad * 512 <= held < 1.2 * eng.n_pad * 512, held
+    shard = shard_kernel_vs_plain(tag, eng, qs)
+    r = run_mesh_search(tag, eng, ds, qs, ref, ref["stream_d"], "packed_scan", seed=100)
+    r.pop("ids")
+    r.update(shard=shard, held_gb=held / 1e9, max_abs_err=shard["max_abs_err"])
+    peak_gb(tag)
+    del eng
+    torch.cuda.empty_cache()
+    return r
+
+
+def path_partitioned_sharded(ds, qs6, ref, partitioned_ids,
+                             seed: int = workload.PARTITIONED_SEED) -> dict:
+    """Phase 9c: ``partitioned_sharded`` on phase 6's rows, the bf16 plane
+    and phase 7's 4·10⁴ queries, on 4 virtual shards of the card. Partner:
+    phase 7's partitioned answer."""
+    tag = f"D=1e+07 bf16 partitioned_sharded {MESH_SHARDS}"
+    qs = workload.partitioned_queries(qs6, seed)
+    partner_d = recompute_result_distances(ds, qs, partitioned_ids.astype(np.int64))
+    eng, held = build_mesh_engine(tag, "partitioned_sharded", ds, virtual_mesh(MESH_SHARDS),
+                                  scan_store="bf16")
+    cv = eng.index.cat_view
+    log(f"[{tag}] engine: index {eng.index.build_seconds}; n_pad={cv.n_pad} "
+        f"local_n={eng._local_n} R={eng.bin_top} k'={eng.kprime} B={eng.query_batch} "
+        f"caps={eng.route_buckets} scan_impl={eng.scan_impl}")
+    assert eng.scan_impl == "v3" and eng.certified and eng.kprime == 240
+    assert held < 1.2 * cv.nbytes, (held, cv.nbytes)
+    t0 = time.perf_counter()
+    eng.search(qs)
+    torch.cuda.synchronize()
+    log(f"[{tag}] warm-up search {time.perf_counter() - t0:.1f} s (time view built in "
+        f"{eng.index.build_seconds.get('time_view', float('nan')):.1f} s); "
+        f"route {json.dumps(eng.last_route)}")
+    planes = [v.scan_V for mv in eng._placed.values() for v in mv.shards]
+    assert len({p.untyped_storage().data_ptr() for p in planes}) == len(eng._placed)
+    peak_gb(tag)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    ids, dists = eng.search(qs)
+    wall = time.perf_counter() - t0
+    search_peak = torch.cuda.max_memory_allocated(DEV) / 1e9
+    launches, route = dict(kernels.launches), dict(eng.last_route)
+    bodies = dict(kernels.k1_body_launches)
+    lane_bodies = {k: dict(v) for k, v in kernels.lane_body_launches.items()}
+    log(f"[{tag}] search {qs.m} queries: {wall:.3f} s = {qs.m / wall:.1f} QPS; "
+        f"launches {launches}; K1 bodies {bodies}; route {json.dumps(route)}; "
+        f"the search's peak of card memory {search_peak:.3f} GB")
+    want = dict.fromkeys(kernels.launches, 0)
+    want["packed_scan_v3"] = MESH_SHARDS * (route["full_batches"]
+                                            + route["ladder"].get("rung1_runs", 0))
+    assert launches == want, (launches, want)
+    assert bodies == {"wgmma": want["packed_scan_v3"], "simt": 0}, bodies
+    assert route["windowed"] == 0 and not route["windowed_batches"], route
+    assert sum(route["routed_groups"].values()) >= 1, route
+    assert ids.shape == (qs.m, 100) and np.isfinite(dists).all() and (ids < ds.n).all()
+    phases = PhaseTimer(device=DEV)
+    eng.search(qs, phases=phases)
+    log(f"[{tag}] phases (fenced run): {json.dumps(phases.as_dict())}")
+    sub = ref["sub"]
+    rec = recall_at_k(ids[:64], ref["oids"], dists[:64], ref["odists"])
+    res = compare_distances(
+        recompute_result_distances(ds, sub, ids[:64].astype(np.int64)), ref["oracle_d"])
+    log(f"[{tag}] oracle (64 queries): recall@100={rec} dist={res.status} "
+        f"max|Δ|={res.max_abs_diff}")
+    assert rec == 1.0 and res.ok, (rec, res)
+    full = compare_distances(recompute_result_distances(ds, qs, ids.astype(np.int64)),
+                             partner_d)
+    log(f"[{tag}] vs the partitioned engine (phase 7), all {qs.m} queries: {full.status} "
+        f"max|Δ|={full.max_abs_diff} beyond={full.num_exceeding}")
+    assert full.ok, full
+    peak_gb(tag)
+    del eng
+    torch.cuda.empty_cache()
+    return dict(qps=qs.m / wall, launches=launches, bodies=bodies, lane_bodies=lane_bodies,
+                route=route, phases=phases.as_dict(), held_gb=held / 1e9,
+                search_peak_gb=search_peak)
+
+
 HARNESS_ROWS, HARNESS_QUERIES = 100_000, 1000
 
 
@@ -1181,8 +1459,9 @@ def path_harness() -> dict:
     """Phase 10: the CLI in process on the card: gen-data 10⁵ and
     gen-queries 10³ (100 categories), build-index of both kinds, ``run`` of
     every ported engine but the oracle (paged resilient with 16384-row
-    windows, partitioned and ivf from their checkpoints, batched once more
-    under ``--profile``), and ``compare`` of the exact engines."""
+    windows, partitioned and ivf from their checkpoints, the mesh engines
+    on the default mesh of every visible card, batched once more under
+    ``--profile``), and ``compare`` of the exact engines."""
     from hvq_tpu_torch.cli.main import main as cli
 
     tag = "harness"
@@ -1202,6 +1481,9 @@ def path_harness() -> dict:
             "partitioned": ["--index", os.path.join(d, "partitioned.npz")],
             "paged": ["--resilient", "--engine-opt", "window_rows=16384"],
             "ivf": ["--index", os.path.join(d, "ivf.npz")],
+            # the mesh engines on the default mesh: every visible card
+            "sharded": [],
+            "partitioned_sharded": [],
             "profiled": ["--profile", os.path.join(d, "trace")],
         }
         kernels.reset_launches()
@@ -1219,18 +1501,24 @@ def path_harness() -> dict:
         trace = os.path.join(d, "trace", "trace.json")
         assert os.path.getsize(trace) > 0
         rc = cli(["compare", *(os.path.join(d, f"{e}.bin")
-                               for e in ("batched", "partitioned", "paged"))])
+                               for e in ("batched", "partitioned", "paged", "sharded",
+                                         "partitioned_sharded"))])
         assert rc == 0, rc
     return dict(run_s=out, launches=launches)
 
 
 def kernel_entries(r6: dict, r7: dict, r8: dict, worst: dict, cert: dict,
-                   deterministic: dict, library: str, paged: dict | None = None) -> list:
+                   deterministic: dict, library: str, paged: dict | None = None,
+                   mesh: dict | None = None) -> list:
     """The kernels line's entries of K1–K4 from the main paths' results
-    (phases 4–7, and phase 8's paged engine when given), phase 3's worst
-    errors, phase 3b's certificate ratios and phase 3c's deterministic
-    cases."""
+    (phases 4–7, phase 8's paged engine and phases 9a–9c's mesh engines
+    when given: ``mesh`` = {"sharded", "sharded_k3", "partitioned_sharded"}),
+    phase 3's worst errors, phase 3b's certificate ratios and phase 3c's
+    deterministic cases."""
     paths = [r6["v3"], r6["v1"], r6["v2"], r7, r8] + ([paged] if paged else [])
+    if mesh:
+        paths += [mesh["sharded"], mesh["sharded"]["one_shard"], mesh["sharded_k3"],
+                  mesh["partitioned_sharded"]]
     timing = ("ms", "plain_ms", "bound_ms", "bound_by", "product_only_matmul_ms")
     entries = []
     for name, impl in (("packed_scan_v3", "v3"), ("packed_scan", "v1"),
@@ -1258,6 +1546,15 @@ def kernel_entries(r6: dict, r7: dict, r8: dict, worst: dict, cert: dict,
             # ms / plain_ms / qps / bound_ms: the D=10⁶ lane path (Dt=8192, R=4)
             e.update(bodies={b: sum(p["lane_bodies"][name][b] for p in paths)
                              for b in ("wgmma", "simt")})
+        if mesh and name == "packed_scan":
+            # K3 per shard (phase 9b: 2×2 mesh, half a batch a q row)
+            k3 = mesh["sharded_k3"]
+            e.update(max_abs_err=max(e["max_abs_err"], k3["max_abs_err"]),
+                     launches_sharded_k3=k3["launches"][name],
+                     ms_shard_d1e6=k3["shard"]["ms"],
+                     plain_ms_shard_d1e6=k3["shard"]["plain_ms"],
+                     qps_sharded_k3_d1e6=k3["qps"],
+                     shapes={"shard_d1e6_2x2": {k: k3["shard"][k] for k in timing}})
         if name == "packed_scan_v3":
             # ms / plain_ms / qps / bound_ms: the D=10⁶ fp32 batched path
             e.update(max_abs_err=max(e["max_abs_err"], r7["max_abs_err"],
@@ -1283,6 +1580,19 @@ def kernel_entries(r6: dict, r7: dict, r8: dict, worst: dict, cert: dict,
                          launches_paged=paged["launches"][name])
                 e["shapes"]["paged_window_d1e7_fp32"] = {k: paged["window"][k]
                                                          for k in timing}
+            if mesh:
+                # K1 per shard: phase 9a (4 virtual shards, then 1) and 9c
+                sh, ps = mesh["sharded"], mesh["partitioned_sharded"]
+                e.update(max_abs_err=max(e["max_abs_err"], sh["max_abs_err"]),
+                         ms_shard_d1e7_fp32=sh["shard"]["ms"],
+                         plain_ms_shard_d1e7_fp32=sh["shard"]["plain_ms"],
+                         launches_sharded=sh["launches"][name],
+                         launches_sharded_1shard=sh["one_shard"]["launches"][name],
+                         launches_partitioned_sharded=ps["launches"][name],
+                         qps_sharded_d1e7=sh["qps"],
+                         qps_sharded_1shard_d1e7=sh["one_shard"]["qps"],
+                         qps_partitioned_sharded_d1e7=ps["qps"])
+                e["shapes"]["shard_d1e7_fp32"] = {k: sh["shard"][k] for k in timing}
         entries.append(e)
     return entries
 
@@ -1302,22 +1612,31 @@ def main() -> int:
     deterministic = {name: determinism(name) for name in kernels.launches}
     log("TPU probe kernels (phase 3d):")
     probes = probe_phase(os.path.basename(probe_kernels.build_info["path"]))
-    r6 = paths_d1e6()
+    r6, reuse_d1e6 = paths_d1e6()
     torch.cuda.empty_cache()
     r7, reused = path_d1e7()
     r8 = path_partitioned(reused)
+    partitioned_ids = r8.pop("ids")
     ds, qs, _, ref, batched_ids = reused
     del reused
     torch.cuda.empty_cache()
     r9 = path_paged(ds, qs, ref, batched_ids)
-    del ds, qs, ref, batched_ids
     r10 = path_ivf()
+    torch.cuda.reset_peak_memory_stats(DEV)
+    mesh = {"sharded": path_sharded(ds, qs, ref, batched_ids)}
+    mesh["sharded_k3"] = path_sharded_k3(*reuse_d1e6)
+    del reuse_d1e6
+    mesh["partitioned_sharded"] = path_partitioned_sharded(ds, qs, ref, partitioned_ids)
+    del ds, qs, ref, batched_ids, partitioned_ids
     r11 = path_harness()
     log(f"paged {r9['qps']:.1f} QPS, ivf {r10['qps']:.1f} QPS (recall {r10['recall']}), "
-        f"harness runs {r11['run_s']}")
+        f"sharded {mesh['sharded']['qps']:.1f} QPS ({MESH_SHARDS} virtual shards; "
+        f"1 shard {mesh['sharded']['one_shard']['qps']:.1f}), sharded K3 "
+        f"{mesh['sharded_k3']['qps']:.1f}, partitioned_sharded "
+        f"{mesh['partitioned_sharded']['qps']:.1f}, harness runs {r11['run_s']}")
     library = os.path.basename(kernels.build_info["path"])
     entries = kernel_entries(r6, r7, r8, worst, cert, deterministic, library,
-                             paged=r9) + probes
+                             paged=r9, mesh=mesh) + probes
     log(card)
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {

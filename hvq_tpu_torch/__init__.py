@@ -12,9 +12,12 @@ Package layout::
 
     hvq_tpu_torch/
       constants.py  record widths, k, the 0.002 tolerance
-      models/  engines (batched, partitioned and paged exact; IVF
+      models/  engines (batched, partitioned and paged exact, and the
+               sharded and partitioned_sharded mesh engines; IVF
                approximate), device database, shared finalize, the NumPy
                oracle
+      parallel/  the device mesh (a (q, d) grid of torch devices, several
+               virtual shards a device allowed) and the cross-shard merges
       index/   sorted views of the partitioned engine (host range routing),
                the IVF index, ``.npz`` checkpoints of both
       ops/     distances, masks, top-k, k-means, the packed scan and its
@@ -26,6 +29,8 @@ Package layout::
       cli/     ``python -m hvq_tpu_torch.cli run | compare | build-index |
                gen-data | gen-queries``
       tools/   ``python -m hvq_tpu_torch.tools.profile_partitioned``
+      entry.py the batched search step and a mesh dry run (the
+               counterpart of the repository's ``__graft_entry__.py``)
 """
 
 __version__ = "0.1.0"

@@ -11,6 +11,9 @@ Subcommands:
                     checkpoint, ``--resilient`` wraps the engine in
                     retry + OOM bisection, ``--profile DIR`` writes a
                     ``torch.profiler`` Chrome trace of the search;
+                    ``--engine sharded`` and ``partitioned_sharded`` run
+                    on the default mesh of ``--device`` (every visible
+                    card, or one CPU shard);
 * ``compare``     — the src/compare_data.cpp:80-108 analogue: pairwise
                     element-wise diff of ``<path>.dist`` files under the
                     0.002 tolerance;
@@ -216,7 +219,9 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--output", default="output.bin")
     r.add_argument("--engine", default="batched", choices=available_engines())
     r.add_argument("--device", default="cuda",
-                   help="torch device: cuda (the kernels) or cpu")
+                   help="torch device: cuda (the kernels) or cpu; the mesh "
+                        "engines (sharded, partitioned_sharded) put every "
+                        "visible card, or one CPU shard, on their mesh")
     r.add_argument("--k", type=int, default=100)
     r.add_argument("--sample-proportion", type=float, default=1.0)
     # None → the engine's own default

@@ -126,8 +126,10 @@ def _build_view(
     db_tile: int,
     device: torch.device,
     scan_store: str = "fp32",
+    n_pad: int | None = None,
 ) -> SortedView:
-    """The view of ``ds`` in the row order ``perm``.
+    """The view of ``ds`` in the row order ``perm``, padded to ``n_pad``
+    rows (default: whole tiles).
 
     The raw vectors are uploaded (pinned) in original row order; the
     permutation gather, the padding and the norms run on the device,
@@ -140,7 +142,8 @@ def _build_view(
     if scan_store not in ("fp32", "bf16"):
         raise ValueError(f"unknown scan_store {scan_store!r}")
     n, dim = ds.V.shape
-    n_pad = -(-n // db_tile) * db_tile
+    if n_pad is None:
+        n_pad = -(-n // db_tile) * db_tile
     V_dev = upload(np.asarray(ds.V, np.float32), device)
     idx = upload(perm.astype(np.int64), device)
     Vp = torch.zeros((n_pad, _c.PADDED_DIM), dtype=torch.float32, device=device)
@@ -202,9 +205,10 @@ class PartitionedIndex:
                 )
             t0 = time.perf_counter()
             perm = np.argsort(self._ds.T, kind="stable").astype(np.int64)
+            # the cat view's rows: a mesh engine's row_multiple included
             self._time_view = _build_view(
                 self._ds, perm, self._db_tile, self.device,
-                scan_store=self._scan_store,
+                scan_store=self._scan_store, n_pad=self.cat_view.n_pad,
             )
             self.build_seconds["time_view"] = time.perf_counter() - t0
         return self._time_view
@@ -214,15 +218,19 @@ class PartitionedIndex:
               device: torch.device | str = "cuda", scan_store: str = "fp32",
               row_multiple: int | None = None):
         """Sort on the host and build the cat view; the time view is built
-        on first use (:attr:`time_view`).
+        on first use (:attr:`time_view`), with the cat view's rows.
+
+        ``row_multiple`` (default ``db_tile``): pad the rows to its multiple
+        instead; the mesh engines need ``n_d · db_tile``, so every shard
+        holds whole tiles of both views.
 
         ``HVQ_PERM_CACHE=<path.npz>`` keeps the host sort products (the
         (C, T) permutation and ``T_sorted``) across processes; the device
         arrays are rebuilt regardless.
         """
-        if row_multiple is not None:
-            raise NotImplementedError(
-                "row_multiple (mesh-sharded views) is not ported yet")
+        rm = row_multiple or db_tile
+        if rm % db_tile:
+            raise ValueError("row_multiple must be a multiple of db_tile")
         device = resolve_device(device)
         t0 = time.perf_counter()
         pc = os.environ.get("HVQ_PERM_CACHE")
@@ -245,7 +253,8 @@ class PartitionedIndex:
         t1 = time.perf_counter()
         out = cls(
             cat_view=_build_view(ds, cat_perm, db_tile, device,
-                                 scan_store=scan_store),
+                                 scan_store=scan_store,
+                                 n_pad=-(-ds.n // rm) * rm),
             T_sorted=T_sorted, _ds=ds, _db_tile=db_tile, _scan_store=scan_store,
         )
         out.build_seconds.update(sort=t1 - t0, cat_view=time.perf_counter() - t1)

@@ -42,6 +42,7 @@ the ladder's first rung, as in the JAX engine.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -51,7 +52,7 @@ from hvq_tpu_torch.utils.formats import Dataset, QuerySet
 from hvq_tpu_torch.models import common
 from hvq_tpu_torch.models.device_db import DeviceDB, resolve_device, upload
 from hvq_tpu_torch.ops import kernels
-from hvq_tpu_torch.ops.distance import PRECISIONS, require_ieee_fp32
+from hvq_tpu_torch.ops.distance import PRECISIONS, exact_distances, require_ieee_fp32
 from hvq_tpu_torch.ops.masks import query_predicate_fields
 from hvq_tpu_torch.ops.scan import (
     LAYOUTS,
@@ -138,21 +139,31 @@ def select_candidates(out_s, out_i, kprime: int, nt: int, layout: str,
     return scores, ids, worst2, kcut_score
 
 
-def certificate(f_d, qV, out_s, nt: int, bin_top: int, bins: int,
-                rel_mm: float, dn_max: float, worst2, kcut_score, k: int):
+def cert_terms(out_s, nt: int, bin_top: int, bins: int, worst2, kcut_score):
+    """Stage 4's terms: (B, 3) fp32 [bin, level-2, k′-cut], each the worst
+    kept (quantized) distance of its cut, +inf where the term is absent
+    (no level-2 reduce, no k′ cut). A mesh takes each term's minimum over
+    its shards (``parallel.collectives.min_terms``) before the threshold."""
+    inf = torch.full((out_s.shape[0],), float("inf"), device=out_s.device)
+    t_bin = last_round_dists(out_s, nt, bin_top, bins).amin(dim=1)
+    return torch.stack([t_bin, inf if worst2 is None else worst2,
+                        inf if kcut_score is None else kcut_score], dim=1)
+
+
+def cert_threshold(t, qnorm, rel_mm: float, dn_max: float):
+    """The certificate's threshold: the k-th refined distance ``t`` plus
+    the fp slack (device tensors, or host arrays for the paged engine's
+    running threshold)."""
+    return t + (rel_mm * (qnorm + dn_max) + _CERT_REL_T * t + _CERT_ABS)
+
+
+def certificate(f_d, qV, terms, rel_mm: float, dn_max: float, k: int):
     """Stage 4: the suspect flag. Nothing outside the kept candidates can
     beat the k-th refined distance t unless a bin's, the level-2 reduce's
-    or the k′ cut's worst kept (quantized) distance is below t plus the
-    fp slack."""
-    t = f_d[:, k - 1]
-    qnorm = (qV * qV).sum(dim=1)
-    thr = t + (rel_mm * (qnorm + dn_max) + _CERT_REL_T * t + _CERT_ABS)
-    worst = last_round_dists(out_s, nt, bin_top, bins)
-    return common.cert_suspect(
-        worst.amin(dim=1) < thr,
-        worst2 < thr if worst2 is not None else None,
-        kcut_score < thr if kcut_score is not None else None,
-    )
+    or the k′ cut's worst kept (quantized) distance (``terms``, see
+    :func:`cert_terms`) is below t plus the fp slack."""
+    thr = cert_threshold(f_d[:, k - 1], (qV * qV).sum(dim=1), rel_mm, dn_max)
+    return (terms < thr[:, None]).any(dim=1)
 
 
 def certified_scan(eng, scan, store, qb: common.QueryBatch, ids, sn: int,
@@ -191,9 +202,76 @@ def certified_scan(eng, scan, store, qb: common.QueryBatch, ids, sn: int,
         return f_ids, torch.zeros(qb.qV.shape[0], dtype=torch.bool,
                                   device=qb.qV.device), f_d
     with maybe_phase(phases, "batch/certificate"):
-        suspect = certificate(f_d, qb.qV, out_s, nt, bin_top, Dt // BIN,
-                              eng._rel_mm, eng._dn_max, worst2, kcut_score, k)
+        terms = cert_terms(out_s, nt, bin_top, Dt // BIN, worst2, kcut_score)
+        suspect = certificate(f_d, qb.qV, terms, eng._rel_mm, eng._dn_max, k)
     return f_ids, suspect, f_d
+
+
+class Slab(NamedTuple):
+    """Rows one per-shard (or per-window) scan reads, on one device: the
+    fp32 rows, the scan plane, C, T, ‖d‖² and ``sid``, the ids the sample
+    limit tests (global ids, or a sorted view's original ids)."""
+
+    Vp: torch.Tensor
+    Vs: torch.Tensor
+    C: torch.Tensor
+    T: torch.Tensor
+    dn: torch.Tensor
+    sid: torch.Tensor
+
+
+def slab_scan(eng, slab: Slab, qb: common.QueryBatch, sn: int, kp: int,
+              impl: str, bin_top: int | None, db_tile: int,
+              level2: bool = True, phases=None):
+    """One query batch against one slab of rows, the per-shard stage of the
+    mesh engines and the paged engine's per-window one → device (exact
+    (B, ≤kp) fp32 with +inf empties, pos (B, ≤kp) int32 positions in the
+    slab, terms (B, 3) fp32 certificate saturation levels as
+    :func:`cert_terms`, all +inf for the streaming scan or uncertified).
+
+    ``impl``: ``"v3"`` K1 on ``slab.Vs``, ``"v1"`` K3 on ``slab.Vp`` (lane
+    layout), ``"packed"`` the plain packed scan on ``slab.Vs`` in
+    ``eng.scan_layout``, ``"stream"`` the streaming exact scan (certified
+    by construction). The candidates are refined exactly on the slab's own
+    fp32 rows, so a slab's rows never leave its device. ``eng`` gives
+    ``scan_layout``, ``l2_min_w``, ``certified``, ``precision`` and
+    ``_scan_precision``.
+    """
+    Dt = db_tile
+    nt = slab.Vp.shape[0] // Dt
+    terms = torch.full((qb.qV.shape[0], 3), float("inf"), device=qb.qV.device)
+    if impl == "stream":
+        with maybe_phase(phases, "shard/scan"):
+            scores, pos = common.scan_database(
+                slab.Vp, slab.C, slab.T, slab.dn, qb, sn, kprime=kp, db_tile=Dt,
+                precision=eng.precision, oid=slab.sid)
+    else:
+        args = (slab.C, slab.T, slab.dn, slab.sid, qb.qV, *qb[1:], sn)
+        kw = dict(db_tile=Dt, bin_top=bin_top)
+        with maybe_phase(phases, "shard/scan"):
+            if impl == "v3":
+                out_s, out_i = kernels.packed_scan_v3(slab.Vs, *args, **kw)
+            elif impl == "v1":
+                out_s, out_i = kernels.packed_scan(slab.Vp, *args, **kw)
+            else:
+                out_s, out_i = packed_scan_plain(
+                    slab.Vs, *args, **kw, layout=eng.scan_layout,
+                    precision=eng._scan_precision)
+        with maybe_phase(phases, "shard/select"):
+            scores, pos, worst2, kcut = select_candidates(
+                out_s, out_i, kp, nt, eng.scan_layout, level2, eng.l2_min_w)
+            if eng.certified:
+                terms = cert_terms(out_s, nt, bin_top, Dt // BIN, worst2, kcut)
+        del out_s, out_i
+    # EXACT refinement on the slab's own rows
+    with maybe_phase(phases, "shard/refine"):
+        valid = torch.isfinite(scores)
+        exact = exact_distances(qb.qV, slab.Vp[pos.long()]).masked_fill(
+            ~valid, float("inf"))
+        if exact.shape[1] > kp:
+            exact, tidx = smallest_k(exact, kp)
+            pos = torch.gather(pos, 1, tidx)
+    return exact, pos, terms
 
 
 def pack_result(ids, suspect, dists) -> torch.Tensor:

@@ -145,16 +145,6 @@ def finalize_with_tail(
     return torch.gather(final_ids, 1, order), final_d
 
 
-def cert_suspect(t_bin, t_l2, t_kc):
-    """The certificate's suspect flag: OR of the terms that are present
-    (bin saturation, level-2 saturation, k'-cut)."""
-    s = t_bin
-    for term in (t_l2, t_kc):
-        if term is not None:
-            s = s | term
-    return s
-
-
 def tail_block_np(V: np.ndarray, t: int = 128) -> np.ndarray:
     """Host-side (t, 128) tail block: row j holds V[n-1-j], zero-padded."""
     t = min(t, V.shape[0])

@@ -156,17 +156,23 @@ class DeviceDB:
         db_tile: int = 16384,
         scan_store: str = "fp32",
         device: torch.device | str = "cuda",
+        row_multiple: int | None = None,
     ) -> "DeviceDB":
         """Upload a host Dataset, lane-padding columns and tile-padding rows.
 
         ``scan_store="bf16"`` also keeps a bf16 copy for the selection scan,
-        rounded on the device.
+        rounded on the device. ``row_multiple`` (default ``db_tile``) pads
+        the rows to its multiple instead: the mesh engines need
+        ``n_d · db_tile``, so every shard holds whole tiles.
         """
         if scan_store not in ("fp32", "bf16"):
             raise ValueError(f"unknown scan_store {scan_store!r}")
+        mult = row_multiple or db_tile
+        if mult % db_tile:
+            raise ValueError("row_multiple must be a multiple of db_tile")
         device = resolve_device(device)
         n = ds.n
-        n_pad = -(-n // db_tile) * db_tile
+        n_pad = -(-n // mult) * mult
         # one padded host buffer per column, filled in place
         Vp = _host_zeros((n_pad, _c.PADDED_DIM), device)
         Vp.numpy()[:n, : ds.V.shape[1]] = ds.V

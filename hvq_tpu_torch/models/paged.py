@@ -47,26 +47,20 @@ import torch
 from hvq_tpu_torch import constants as _c
 from hvq_tpu_torch.models import common
 from hvq_tpu_torch.models.batched import (
-    _CERT_ABS,
     _CERT_REL_MM,
     _CERT_REL_MM_BF16,
-    _CERT_REL_T,
+    Slab,
     _pow2_batch,
+    cert_threshold,
     check_unported,
     pack_query_block,
-    select_candidates,
+    slab_scan,
     unpack_query_block,
 )
 from hvq_tpu_torch.models.device_db import PinnedStaging, resolve_device, upload_async
-from hvq_tpu_torch.ops import kernels
-from hvq_tpu_torch.ops.distance import (
-    PRECISIONS,
-    exact_distances,
-    require_ieee_fp32,
-    squared_norms,
-)
-from hvq_tpu_torch.ops.scan import choose_bin_top, last_round_dists, packed_scan_plain
-from hvq_tpu_torch.ops.topk import BIN, smallest_k
+from hvq_tpu_torch.ops.distance import PRECISIONS, require_ieee_fp32, squared_norms
+from hvq_tpu_torch.ops.scan import choose_bin_top
+from hvq_tpu_torch.ops.topk import BIN
 from hvq_tpu_torch.utils.formats import Dataset, QuerySet
 from hvq_tpu_torch.utils.timing import maybe_phase
 
@@ -174,6 +168,8 @@ class PagedEngine:
             kprime = 240 if self._bf16_plane else 128
         self.kprime = int(kprime)
         self.precision = precision
+        # K1's output layout, the plain packed scan's and level 2's
+        self.scan_layout = "axis1"
         # the plain packed scan's passes: one on the bf16 plane
         self._scan_precision = "default" if self._bf16_plane else precision
         self.certified = bool(certified and precision in ("high", "highest"))
@@ -226,45 +222,12 @@ class PagedEngine:
         """One (B, QPACK_W) query block against the resident window ``win``
         → device (exact (B, ≤kp) fp32 with +inf empties, gid (B, ≤kp)
         int32 GLOBAL ids, terms (B, 3) fp32 certificate saturation levels
-        [bin, level-2, k′-cut], +inf = term absent)."""
-        Vw, Vs, Cw, Tw, dnw, oidw = win
-        qb = unpack_query_block(Qblk)
-        Dt = self.db_tile
-        nt = Vw.shape[0] // Dt
-        inf = torch.full((Qblk.shape[0],), float("inf"), device=Qblk.device)
-        t_bin = t_l2 = t_kc = inf
-        if impl in ("v3", "packed"):
-            if impl == "v3":
-                out_s, out_i = kernels.packed_scan_v3(
-                    Vs, Cw, Tw, dnw, oidw, qb.qV, *qb[1:], sn,
-                    db_tile=Dt, bin_top=bin_top)
-            else:
-                out_s, out_i = packed_scan_plain(
-                    Vs, Cw, Tw, dnw, oidw, qb.qV, *qb[1:], sn, db_tile=Dt,
-                    bin_top=bin_top, layout="axis1", precision=self._scan_precision)
-            scores, pos, worst2, kcut = select_candidates(
-                out_s, out_i, kp, nt, "axis1", level2, self.l2_min_w)
-            if self.certified:
-                t_bin = last_round_dists(out_s, nt, bin_top, Dt // BIN).amin(dim=1)
-                if worst2 is not None:
-                    t_l2 = worst2
-                if kcut is not None:
-                    t_kc = kcut
-            del out_s, out_i
-        else:
-            # streaming exact scan (certified by construction): the rerun
-            # target for flagged (window, query) pairs
-            scores, pos = common.scan_database(
-                Vw, Cw, Tw, dnw, qb, sn, kprime=kp, db_tile=Dt,
-                precision=self.precision, oid=oidw)
-        # EXACT refinement on the resident rows: the window leaves the card
-        valid = torch.isfinite(scores)
-        exact = exact_distances(qb.qV, Vw[pos.long()]).masked_fill(~valid, float("inf"))
-        if exact.shape[1] > kp:
-            exact, tidx = smallest_k(exact, kp)
-            pos = torch.gather(pos, 1, tidx)
+        [bin, level-2, k′-cut], +inf = term absent): the shared per-slab
+        stage (``batched.slab_scan``), K1's positions moved by ``w0``."""
+        exact, pos, terms = slab_scan(self, Slab(*win), unpack_query_block(Qblk), sn,
+                                      kp, impl, bin_top, self.db_tile, level2)
         gid = torch.where(torch.isfinite(exact), pos + w0, 0).to(torch.int32)
-        return exact, gid, torch.stack([t_bin, t_l2, t_kc], dim=1)
+        return exact, gid, terms
 
     @staticmethod
     def _pack(exact, gid, terms) -> torch.Tensor:
@@ -358,7 +321,7 @@ class PagedEngine:
                 # thr(t_final); t_w = +inf (fewer than k candidates so far)
                 # reruns the window
                 t_w = np.partition(best_d[: qs.m], k - 1, axis=1)[:, k - 1]
-                thr = t_w + (self._rel_mm * (qn + dn_max) + _CERT_REL_T * t_w + _CERT_ABS)
+                thr = cert_threshold(t_w, qn, self._rel_mm, dn_max)
                 thr = np.where(np.isfinite(t_w), thr, np.inf)
                 sus = np.nonzero((terms_w[: qs.m] < thr[:, None]).any(axis=1))[0]
                 if sus.size:

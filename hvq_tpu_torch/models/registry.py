@@ -7,7 +7,10 @@ Engine protocol::
 
 ``ids``: (m, k) uint32 neighbour ids ascending by distance; ``dists``:
 (m, k) float32 exact distances. Engines import lazily, so importing the
-registry loads no engine module.
+registry loads no engine module. The mesh engines (``sharded``,
+``partitioned_sharded``) also take ``mesh=`` (``parallel.mesh.make_mesh``);
+without one, ``device`` picks it: every visible card by default, one CPU
+shard for ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -23,6 +26,9 @@ _ENGINES = {
     "oracle": ("hvq_tpu_torch.models.oracle", "OracleEngine"),
     "paged": ("hvq_tpu_torch.models.paged", "PagedEngine"),
     "partitioned": ("hvq_tpu_torch.models.partitioned", "PartitionedEngine"),
+    "partitioned_sharded": ("hvq_tpu_torch.models.partitioned_sharded",
+                            "ShardedPartitionedEngine"),
+    "sharded": ("hvq_tpu_torch.models.sharded", "ShardedEngine"),
 }
 
 

@@ -3,7 +3,9 @@
 # oracle and every ported engine on the same D/Q through
 # `python -m hvq_tpu_torch.cli`, then pairwise-compare the exact engines'
 # .dist files under the 0.002 tolerance (reference run.sh:8-18). The exact
-# engines (batched, partitioned, paged) must come back "same"/"similar";
+# engines (batched, partitioned, paged and the mesh engines sharded and
+# partitioned_sharded, on the device's default mesh: every visible card, or
+# one CPU shard) must come back "same"/"similar";
 # ivf is approximate by design, so it gets a recall line against the
 # oracle instead.
 #
@@ -22,7 +24,7 @@ python -m hvq_tpu_torch.cli gen-queries "$DIR/query.bin" "$M" --categories 100
 
 # paged gets a window of N/2 rows (at least one 16384-row tile), so the
 # host-paging path runs two windows once N reaches 32768.
-for ENGINE in oracle batched partitioned paged ivf; do
+for ENGINE in oracle batched partitioned paged sharded partitioned_sharded ivf; do
   EXTRA=()
   if [[ "$ENGINE" == "paged" ]]; then
     EXTRA=(--engine-opt "window_rows=$(( N / 2 ))")
@@ -37,7 +39,8 @@ done
 
 echo "== differential comparison (exact engines) =="
 python -m hvq_tpu_torch.cli compare \
-  "$DIR/oracle.bin" "$DIR/batched.bin" "$DIR/partitioned.bin" "$DIR/paged.bin"
+  "$DIR/oracle.bin" "$DIR/batched.bin" "$DIR/partitioned.bin" "$DIR/paged.bin" \
+  "$DIR/sharded.bin" "$DIR/partitioned_sharded.bin"
 
 echo "== ivf recall vs oracle =="
 python - "$DIR" <<'EOF'

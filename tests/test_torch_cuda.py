@@ -771,3 +771,71 @@ def test_ivf_engine_on_cuda_matches_the_cpu_port_on_a_carried_index(cuda):
             recompute_result_distances(ds, qs, ids_w.astype(np.int64)), atol=0.002, rtol=0)
         np.testing.assert_allclose(d_g, d_w, atol=0.002, rtol=0)
     assert sum(kernels.launches.values()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plane", ["fp32", "bf16"])
+def test_k1_and_k3_on_a_slab_view_equal_their_run_on_its_clone(cuda, plane):
+    """A mesh shard's slab is a view at an offset into one upload: K1 (and
+    K3 on the fp32 plane) read it through the view's own pointer, bit for
+    bit what they return on a contiguous copy of the same rows."""
+    from hvq_tpu_torch.parallel.mesh import make_mesh, shard_rows
+
+    args = _inputs(cuda, plane, n_pad=4 * 16384, B=64)
+    mesh = make_mesh(devices=[cuda] * 4)
+    slabs = [shard_rows(mesh, a)[0] for a in args[:5]]
+    kw = dict(db_tile=16384, bin_top=3)
+    for j in range(1, 4):
+        view = [s[j] for s in slabs]
+        assert view[0].untyped_storage().data_ptr() == args[0].untyped_storage().data_ptr()
+        assert view[0].data_ptr() != args[0].data_ptr()
+        clone = [t.clone() for t in view]
+        names = ("packed_scan_v3",) + (("packed_scan",) if plane == "fp32" else ())
+        for name in names:
+            fn = getattr(kernels, name)
+            kw_n = kw if name == "packed_scan_v3" else dict(db_tile=8192, bin_top=4)
+            got = fn(*view, *args[5:], 50000, **kw_n)
+            want = fn(*clone, *args[5:], 50000, **kw_n)
+            for g, w in zip(got, want):
+                assert torch.equal(g.view(torch.int32), w.view(torch.int32)), (name, j)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kw", [
+    ("sharded", dict(db_tile=16384, query_batch=64)),
+    ("sharded", dict(db_tile=8192, query_batch=64, scan_impl="pallas")),
+    ("partitioned_sharded", dict(db_tile=16384, query_batch=64)),
+])
+def test_four_virtual_shards_of_one_card_equal_the_cpu_mesh(cuda, name, kw):
+    """4 virtual shards of cuda:0 against the same mesh on the CPU: the
+    0.002 contract and recall 1.0 both ways and against the oracle; one
+    copy of the database on the card; every scan launch on the tensor-core
+    body."""
+    from hvq_tpu_torch import get_engine
+    from hvq_tpu_torch.parallel.mesh import make_mesh
+
+    ds = generate_dataset(300000, seed=16, categories=30)
+    qs = generate_queries(128, seed=17, categories=30)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(cuda)
+    kernels.reset_launches()
+    eng = get_engine(name)(ds, mesh=make_mesh(devices=[cuda] * 4), **kw)
+    ids, dists = eng.search(qs)
+    held = torch.cuda.memory_allocated(cuda) - before
+    cpu = get_engine(name)(ds, mesh=make_mesh(devices=["cpu"] * 4), **kw)
+    c_ids, c_dists = cpu.search(qs)
+    oids, odists = search_oracle(ds, qs)
+    for a_ids, a_d, b_ids, b_d in ((ids, dists, c_ids, c_dists), (ids, dists, oids, odists)):
+        assert recall_at_k(a_ids, b_ids, a_d, b_d) == 1.0
+        res = compare_distances(recompute_result_distances(ds, qs, a_ids.astype(np.int64)),
+                                recompute_result_distances(ds, qs, b_ids.astype(np.int64)))
+        assert res.ok, res
+    kernel = "packed_scan" if kw.get("scan_impl") == "pallas" else "packed_scan_v3"
+    bodies = (kernels.k1_body_launches if kernel == "packed_scan_v3"
+              else kernels.lane_body_launches[kernel])
+    # every shard of every batch on the tensor-core body (R ≤ 8; a rung 1
+    # at 2R > 8 may add CUDA-core launches)
+    assert eng.bin_top <= 8
+    assert bodies["wgmma"] >= 4 * -(-qs.m // kw["query_batch"])
+    n_pad = eng.n_pad if name == "sharded" else eng.index.cat_view.n_pad
+    assert held < 1.5 * n_pad * 128 * 4     # one database, not four

@@ -167,10 +167,11 @@ def test_from_arrays_rejects_a_scan_plane_bf16_cannot_hold():
 
 
 def test_registry():
-    assert available_engines() == ["batched", "ivf", "oracle", "paged", "partitioned"]
+    assert available_engines() == ["batched", "ivf", "oracle", "paged", "partitioned",
+                                   "partitioned_sharded", "sharded"]
     assert get_engine("batched") is BatchedEngine
     with pytest.raises(KeyError):
-        get_engine("sharded")
+        get_engine("no_such_engine")
     ds = generate_dataset(500, seed=38, categories=10)
     qs = generate_queries(4, seed=39, categories=10)
     ids, _ = get_engine("oracle")(ds, device="cpu").search(qs)

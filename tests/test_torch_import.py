@@ -412,7 +412,8 @@ def test_paged_ivf_and_harness_modules_leave_jax_unloaded():
         "from hvq_tpu_torch.index import serialize\n"
         "from hvq_tpu_torch.utils import profiling, resilience\n"
         "from hvq_tpu_torch.utils.generators import generate_dataset, generate_queries\n"
-        "assert available_engines() == ['batched', 'ivf', 'oracle', 'paged', 'partitioned']\n"
+        "assert available_engines() == ['batched', 'ivf', 'oracle', 'paged', 'partitioned',\n"
+        "                               'partitioned_sharded', 'sharded']\n"
         "ds = generate_dataset(3000, seed=1, categories=20, clusters=8)\n"
         "qs = generate_queries(8, seed=2, categories=20)\n"
         "eng = get_engine('paged')(ds, device='cpu', db_tile=512, window_rows=1024,\n"
@@ -464,3 +465,80 @@ def test_chip_smoke_kernels_line_carries_the_paged_k1_launches():
     assert k1["ms_paged_window_d1e7_fp32"] == 9.5 and k1["qps_paged_d1e7"] == 4321.0
     assert k1["shapes"]["paged_window_d1e7_fp32"]["ms"] == 9.5
     assert k1["max_abs_err"] == 0.02 and "launches_paged" not in before
+
+
+def test_mesh_engines_search_on_cpu_shards_with_jax_unloaded():
+    """Both mesh engines searching on an 8-CPU-shard mesh (and the 2×4
+    q-by-d mesh for sharded) and the mesh dry run, in one fresh
+    interpreter: no module of jax or the JAX package."""
+    proc = _run(
+        "import sys\n"
+        "from hvq_tpu_torch import get_engine\n"
+        "from hvq_tpu_torch.entry import dryrun_multichip\n"
+        "from hvq_tpu_torch.parallel.mesh import make_mesh\n"
+        "from hvq_tpu_torch.utils.generators import generate_dataset, generate_queries\n"
+        "ds = generate_dataset(3000, seed=1, categories=20)\n"
+        "qs = generate_queries(16, seed=2, categories=20)\n"
+        "for name, mesh in (('sharded', make_mesh(devices=['cpu'] * 8)),\n"
+        "                   ('sharded', make_mesh(4, 2, devices=['cpu'] * 8)),\n"
+        "                   ('partitioned_sharded', make_mesh(devices=['cpu'] * 8))):\n"
+        "    eng = get_engine(name)(ds, mesh=mesh, db_tile=128, query_batch=16)\n"
+        "    ids, _ = eng.search(qs)\n"
+        "    assert ids.shape == (16, 100)\n"
+        "dryrun_multichip(8, device='cpu')\n"
+        + _FOREIGN
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_chip_smoke_kernels_line_carries_the_mesh_launches():
+    """On synthetic numbers: with phases 9a–9c's results, K1's entry adds
+    the sharded (4 virtual shards and 1), and partitioned_sharded launches
+    to its total and carries the shard's shape and time; K3's adds the 2×2
+    mesh's launches and its shard's shape; without them both are as
+    before."""
+    cs = _chip_smoke()
+    r6 = {"v3": _path("packed_scan_v3"), "v1": _path("packed_scan"),
+          "v2": _path("packed_scan_v2"),
+          "k4": dict(ms=5.5, plain_ms=50.7, bound_ms=1.252, bound_by="operations",
+                     bound_fp32_simt_ms=3.08, product_only_matmul_ms=5.6, launches=1,
+                     bodies={"wgmma": 1, "simt": 0}, max_abs_err=0.002)}
+    win = dict(ms=7.0, plain_ms=300.0, bound_ms=1.0, bound_by="operations",
+               product_only_matmul_ms=4.0)
+    r8 = dict(_path("packed_scan_v3"), window=win)
+    shard = dict(win, ms=8.5, max_abs_err=0.03)
+
+    def mesh_path(name, n):
+        p = _path(name)
+        p["launches"][name] = n
+        if name == "packed_scan_v3":
+            p["bodies"] = {"wgmma": n, "simt": 0}
+        else:
+            p["lane_bodies"][name]["wgmma"] = n
+        return p
+
+    sharded = dict(mesh_path("packed_scan_v3", 40), shard=shard, qps=777.0,
+                   max_abs_err=0.03, one_shard=dict(mesh_path("packed_scan_v3", 10), qps=888.0))
+    k3 = dict(mesh_path("packed_scan", 44), shard=dict(win, ms=3.0, max_abs_err=0.04),
+              qps=999.0, max_abs_err=0.04)
+    mesh = dict(sharded=sharded, sharded_k3=k3,
+                partitioned_sharded=mesh_path("packed_scan_v3", 84))
+    names = ("packed_scan_v3", "packed_scan", "packed_scan_v2", "bin_scan")
+    args = (r6, _path("packed_scan_v3"), r8, dict.fromkeys(names, 0.001),
+            dict.fromkeys(names, {}), dict.fromkeys(names, 7), "lib.so")
+    before = cs.kernel_entries(*args)
+    k1, k3e = cs.kernel_entries(*args, mesh=mesh)[:2]
+    assert before[0]["launches"] == 30 and before[1]["launches"] == 10
+    assert k1["launches"] == 30 + 40 + 10 + 84 and k1["bodies"]["wgmma"] == 164
+    assert (k1["launches_sharded"], k1["launches_sharded_1shard"],
+            k1["launches_partitioned_sharded"]) == (40, 10, 84)
+    assert k1["ms_shard_d1e7_fp32"] == 8.5 and k1["shapes"]["shard_d1e7_fp32"]["ms"] == 8.5
+    assert k1["qps_sharded_1shard_d1e7"] == 888.0 and k1["max_abs_err"] == 0.03
+    assert k3e["launches"] == 10 + 44 and k3e["launches_sharded_k3"] == 44
+    assert k3e["bodies"]["wgmma"] == 54 and k3e["shapes"]["shard_d1e6_2x2"]["ms"] == 3.0
+    assert k3e["max_abs_err"] == 0.04 and "launches_sharded" not in before[0]
+    for e in (k1, k3e):
+        for key in ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+                    "plain_ms", "bound_ms", "bound_by", "library_ms"):
+            assert key in e, key

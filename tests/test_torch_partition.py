@@ -168,5 +168,14 @@ def test_perm_cache_is_written_then_read(ds, tmp_path, monkeypatch):
 
 
 def test_row_multiple_is_not_ported(ds):
-    with pytest.raises(NotImplementedError):
-        tpart.PartitionedIndex.build(ds, db_tile=DB_TILE, row_multiple=512, device="cpu")
+    """row_multiple (the mesh engines' n_d · db_tile padding) is ported
+    now: both views of both packages pad to its multiple, equal array for
+    array, and a multiple that is not whole tiles raises JAX's ValueError."""
+    jidx = jpart.PartitionedIndex.build(ds, db_tile=DB_TILE, row_multiple=8 * DB_TILE)
+    tidx = tpart.PartitionedIndex.build(ds, db_tile=DB_TILE, row_multiple=8 * DB_TILE,
+                                        device="cpu")
+    assert tidx.cat_view.n_pad == 4096 != -(-N // DB_TILE) * DB_TILE
+    _assert_views_equal(tidx.cat_view, jidx.cat_view)
+    _assert_views_equal(tidx.time_view, jidx.time_view)
+    with pytest.raises(ValueError, match="multiple of db_tile"):
+        tpart.PartitionedIndex.build(ds, db_tile=DB_TILE, row_multiple=300, device="cpu")
