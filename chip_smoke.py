@@ -106,7 +106,31 @@ Phases, in order; any failure exits non-zero with a traceback:
    a fenced phase run, recall and ``.dist`` on the oracle queries, and
    every query within 0.002 of phase 7's partitioned answer; each mesh
    phase prints its peak of card memory and frees its engine;
-10. the CLI in process: gen-data 10⁵ and gen-queries 10³, build-index of
+10a. ``repair_bins=2`` (the in-program bin repair) and the certificate's
+   forensics (``HVQ_CERT_TERMS=1``) on the card: the batched K1 engine on
+   phase 6's database (bf16 plane), the partitioned engine on phase 7's
+   index and queries, then again with ``repair_gate=True``, the paged
+   engine at phase 8's windows, ``sharded`` on 4 virtual shards (9a) and
+   ``partitioned_sharded`` (9c): each after a warm-up, its timed search
+   with the launch counts (K1 as its phase counts it, all on the
+   tensor-core body), its ladder beside its phase's ladder without
+   repair, the term histogram, a fenced run with the repair's own
+   ``*/repair`` phase, recall 1.0 and ``.dist`` "same" on the 64 oracle
+   queries and every query within 0.002 of its phase's unrepaired answer;
+10b. the batched engine with ``scan_impl="xla_deferred"`` at D=10⁶ on
+   phase 4's 8192-row database, held to phase 4's streaming answer (its
+   rung 1 is K1, counted);
+10c. the streaming scan with ``topk_strategy="sort"`` (exact, held to
+   phase 4's streaming answer) and ``"binned"`` (approximate: recall ≥
+   0.95 against it) on 1024 of phase 4's queries;
+10d. ``dtype=bfloat16`` storage at D=10⁶ (uncertified; K1 on the bf16
+   storage as its plane): recall with a 50.0 distance tolerance ≥ 0.95
+   and the relative distance error < 0.05;
+10e. the native host runtime and the CLI on a D=10⁶ file pair: gen-data
+   and gen-queries, the native library's file name, its mmap read against
+   the NumPy memmap read bit for bit, ``run`` with its host counter table,
+   and the counters the host allowed;
+11. the CLI in process: gen-data 10⁵ and gen-queries 10³, build-index of
    both kinds, ``run`` of batched, partitioned (from its checkpoint),
    paged (``--resilient``, 16384-row windows), ivf (from its checkpoint),
    sharded and partitioned_sharded (the default mesh: every visible card)
@@ -857,7 +881,8 @@ def run_engine(tag, eng, ds, qs, ref, seed) -> dict:
     assert full.ok, full
     return dict(name=name, qps=qs.m / wall, ms=ms, plain_ms=plain_ms, **bnd,
                 launches=launches, bodies=bodies, lane_bodies=lane_bodies,
-                max_abs_err=agree["max_abs_err"], suspects=ladder["suspects"], ids=ids)
+                max_abs_err=agree["max_abs_err"], suspects=ladder["suspects"],
+                ladder=ladder, ids=ids)
 
 
 def k4_path(tag, db, qs) -> dict:
@@ -907,8 +932,8 @@ def dataset(n: int, seed: int, tag: str):
 
 def paths_d1e6(seed: int = 100):
     """Phases 4–5: K1, K3 and K2 engines and K4 over one D=10⁶ dataset.
-    Returns their results and what phase 9b reuses: the dataset, queries
-    and references."""
+    Returns their results, what phase 9b reuses (the dataset, queries and
+    references) and the 8192-row database phase 10 reuses."""
     tag = "D=1e+06 fp32"
     ds, qs = dataset(1_000_000, seed, tag)
     out = {}
@@ -925,7 +950,7 @@ def paths_d1e6(seed: int = 100):
         out[impl] = run_engine(f"{tag} {impl}", eng, ds, qs, ref, seed)
         del eng, out[impl]["ids"]
     out["k4"] = k4_path(tag, lane_db, qs)
-    return out, (ds, qs, ref)
+    return out, (ds, qs, ref), lane_db
 
 
 def path_d1e7(seed: int = workload.PARTITIONED_SEED):
@@ -1027,6 +1052,7 @@ def path_partitioned(reused, seed: int = workload.PARTITIONED_SEED) -> dict:
     log(f"[{tag}] oracle (64 queries): recall@100={rec} dist={res.status} "
         f"max|Δ|={res.max_abs_diff}")
     assert rec == 1.0 and res.ok, (rec, res)
+    index = eng.index           # phase 10 searches it again, repaired
     del eng
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -1040,7 +1066,7 @@ def path_partitioned(reused, seed: int = workload.PARTITIONED_SEED) -> dict:
     assert full.ok, full
     return dict(qps=qs.m / wall, launches=launches, bodies=bodies,
                 lane_bodies=lane_bodies, route=route, window=win,
-                max_abs_err=win["max_abs_err"], ids=ids)
+                max_abs_err=win["max_abs_err"], ids=ids, index=index)
 
 
 def paged_window_vs_plain(tag, eng, qs) -> dict:
@@ -1148,7 +1174,7 @@ def path_paged(ds, qs, ref, batched_ids) -> dict:
     torch.cuda.empty_cache()
     return dict(qps=qs.m / wall, launches=launches, bodies=bodies, lane_bodies=lane_bodies,
                 window=win, max_abs_err=win["max_abs_err"], reruns=reruns,
-                upload_gb_s=rate, phases=ph)
+                upload_gb_s=rate, phases=ph, ids=ids)
 
 
 # Phase 9: experiments/ivf_scale.py's own settings.
@@ -1359,7 +1385,6 @@ def path_sharded(ds, qs, ref, batched_ids) -> dict:
     peak_gb(tag1)
     del eng
     torch.cuda.empty_cache()
-    r.pop("ids")
     return r
 
 
@@ -1449,14 +1474,327 @@ def path_partitioned_sharded(ds, qs6, ref, partitioned_ids,
     torch.cuda.empty_cache()
     return dict(qps=qs.m / wall, launches=launches, bodies=bodies, lane_bodies=lane_bodies,
                 route=route, phases=phases.as_dict(), held_gb=held / 1e9,
-                search_peak_gb=search_peak)
+                search_peak_gb=search_peak, ids=ids)
+
+
+# Phase 10: the options this port slice adds, on the card.
+REPAIR_BINS = 2
+
+
+def oracle_and_partner(tag, ds, qs, ids, dists, ref, partner_ids, what: str) -> dict:
+    """Recall 1.0 and ``.dist`` "same" or "similar" (≤ 0.002, as every
+    earlier phase holds it: the paged engine's host finalize breaks
+    near-ties its own way) on the 64 oracle queries, and every query
+    within 0.002 of ``partner_ids`` (another path's answer)."""
+    sub = ref["sub"]
+    rec = recall_at_k(ids[:64], ref["oids"], dists[:64], ref["odists"])
+    res = compare_distances(
+        recompute_result_distances(ds, sub, ids[:64].astype(np.int64)), ref["oracle_d"])
+    log(f"[{tag}] oracle (64 queries): recall@100={rec} dist={res.status} "
+        f"max|Δ|={res.max_abs_diff}")
+    assert rec == 1.0 and res.ok, (rec, res)
+    full = compare_distances(recompute_result_distances(ds, qs, ids.astype(np.int64)),
+                             recompute_result_distances(ds, qs, partner_ids.astype(np.int64)))
+    log(f"[{tag}] vs {what}, all {qs.m} queries: {full.status} "
+        f"max|Δ|={full.max_abs_diff} beyond={full.num_exceeding}")
+    assert full.ok, full
+    return dict(recall=rec, dist=res.status, partner=full.status,
+                partner_max_abs_diff=full.max_abs_diff)
+
+
+def repaired_search(tag, eng, ds, qs, ref, partner_ids, base: dict, k1_want, ladder_of,
+                    warm) -> dict:
+    """One engine built with ``repair_bins=2`` (and forensics): a warm-up
+    (``warm``), the timed search with the launch counts set to 0 just
+    before it (K1 = ``k1_want(eng, ladder)``, every launch on the
+    tensor-core body, nothing else), its ladder beside ``base`` (the same
+    engine's without repair, an earlier phase's), the certificate's term
+    histogram, a fenced phase run (the repair's own ``*/repair`` phase),
+    and the oracle and partner checks."""
+    eng.search(warm)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    ids, dists = eng.search(qs)
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    bodies = dict(kernels.k1_body_launches)
+    ladder = ladder_of(eng)
+    terms = getattr(eng, "_last_cert_terms", None)
+    hist = None if terms is None else {int(t): int(c) for t, c in
+                                       zip(*np.unique(terms, return_counts=True))}
+    log(f"[{tag}] search {qs.m} queries: {wall:.3f} s = {qs.m / wall:.1f} QPS; launches "
+        f"{launches}; K1 bodies {bodies}; ladder with repair_bins={REPAIR_BINS} "
+        f"{json.dumps(ladder)} vs without {json.dumps(base)}; certificate terms "
+        f"(1 bin, 2 level 2, 4 k'-cut) {hist}")
+    want = dict.fromkeys(kernels.launches, 0)
+    want["packed_scan_v3"] = k1_want(eng, ladder)
+    assert launches == want, (launches, want)
+    assert bodies == {"wgmma": want["packed_scan_v3"], "simt": 0}, bodies
+    assert ids.shape == (qs.m, 100) and np.isfinite(dists).all() and (ids < ds.n).all()
+    # no id twice (the repair's dedup) where no tail pad can repeat one
+    assert all(len(set(row)) == 100 for row in ids[qs.qtype == 0].tolist())
+    phases = PhaseTimer(device=DEV)
+    eng.search(qs, phases=phases)
+    ph = phases.as_dict()
+    repair = {k: v for k, v in ph.items() if k.endswith("/repair")}
+    assert repair, ph
+    log(f"[{tag}] phases (fenced run): {json.dumps(ph)}; the repair's own: {repair}")
+    checks = oracle_and_partner(tag, ds, qs, ids, dists, ref, partner_ids,
+                                "the same engine without repair")
+    return dict(qps=qs.m / wall, launches=launches, bodies=bodies, ladder=ladder,
+                base_ladder=base, terms=hist, repair_phase=repair, phases=ph, **checks)
+
+
+def path_repair(ds, qs6, ref, db6, index7, answers: dict, bases: dict) -> dict:
+    """Phase 10a: ``repair_bins=2`` on the card: the batched K1 engine on
+    phase 6's database (bf16 plane), the partitioned engine on phase 7's
+    index and queries (then again with ``repair_gate=True``), the paged
+    engine (phase 8's windows), ``sharded`` on 4 virtual shards (9a) and
+    ``partitioned_sharded`` (9c); each held to its phase's unrepaired
+    answer (``answers``) with its ladder beside that phase's (``bases``)."""
+    qs7 = workload.partitioned_queries(qs6)
+    warm = generate_queries(1024, seed=302, categories=workload.CATEGORIES)
+    out = {}
+    os.environ["HVQ_CERT_TERMS"] = "1"      # forensics, read at construction
+    try:
+        ladder = lambda e: dict(e.last_ladder)
+        route_ladder = lambda e: dict(e.last_route["ladder"], flagged=e.last_route["suspects"],
+                                      dense_straddling=e.last_route["dense_straddling"])
+        eng = get_engine("batched")(ds, device=DEV, device_db=db6, repair_bins=REPAIR_BINS)
+        assert eng.scan_impl == "v3" and eng.certified and eng._bf16_scan
+        out["batched"] = repaired_search(
+            "D=1e+07 bf16 batched repaired", eng, ds, qs6, ref, answers["batched"],
+            bases["batched"], lambda e, lad: -(-qs6.m // e.query_batch)
+            + lad.get("rung1_runs", 0), ladder, warm)
+        del eng
+        for gate in (False, True):
+            name = "partitioned_gated" if gate else "partitioned"
+            eng = get_engine("partitioned")(ds, device=DEV, index=index7,
+                                            repair_bins=REPAIR_BINS, repair_gate=gate)
+            out[name] = repaired_search(
+                f"D=1e+07 bf16 partitioned repaired{' gated' if gate else ''}", eng, ds,
+                qs7, ref, answers["partitioned"], bases["partitioned"],
+                lambda e, lad: (e.last_route["full_batches"]
+                                + sum(e.last_route["windowed_batches"].values())
+                                + lad.get("rung1_runs", 0)), route_ladder, warm)
+            del eng
+        torch.cuda.empty_cache()
+        eng = get_engine("paged")(ds, device=DEV, window_rows=PAGED_WINDOW_ROWS,
+                                  scan_impl="v3", repair_bins=REPAIR_BINS)
+        out["paged"] = repaired_search(
+            "D=1e+07 fp32 paged repaired", eng, ds, qs6, ref, answers["paged"],
+            bases["paged"], lambda e, lad: len(e.windows) * -(-qs6.m // e.query_batch),
+            lambda e: dict(e.last_reruns), warm)
+        del eng
+        torch.cuda.empty_cache()
+        eng, _ = build_mesh_engine("D=1e+07 fp32 sharded repaired", "sharded", ds,
+                                   virtual_mesh(MESH_SHARDS), query_batch=1024,
+                                   repair_bins=REPAIR_BINS)
+        out["sharded"] = repaired_search(
+            f"D=1e+07 fp32 sharded {MESH_SHARDS} repaired", eng, ds, qs6, ref,
+            answers["sharded"], bases["sharded"],
+            lambda e, lad: MESH_SHARDS * (-(-qs6.m // e.query_batch)
+                                          + lad.get("rung1_runs", 0)), ladder, warm)
+        del eng
+        torch.cuda.empty_cache()
+        eng, _ = build_mesh_engine("D=1e+07 bf16 partitioned_sharded repaired",
+                                   "partitioned_sharded", ds, virtual_mesh(MESH_SHARDS),
+                                   scan_store="bf16", repair_bins=REPAIR_BINS)
+        out["partitioned_sharded"] = repaired_search(
+            f"D=1e+07 bf16 partitioned_sharded {MESH_SHARDS} repaired", eng, ds, qs7, ref,
+            answers["partitioned_sharded"], bases["partitioned_sharded"],
+            lambda e, lad: MESH_SHARDS * (e.last_route["full_batches"]
+                                          + lad.get("rung1_runs", 0)), route_ladder, qs7)
+        del eng
+        torch.cuda.empty_cache()
+    finally:
+        os.environ.pop("HVQ_CERT_TERMS", None)
+    return out
+
+
+def path_deferred(ds, qs, ref, lane_db) -> dict:
+    """Phase 10b: the batched engine with ``scan_impl="xla_deferred"`` (the
+    unpacked deferred bin scan, no kernel; lane bins on phase 4's
+    8192-row fp32 database) at D=10⁶, held to phase 4's streaming answer;
+    its ladder's rung 1 is K1 (axis1), counted."""
+    tag = "D=1e+06 fp32 xla_deferred"
+    eng = get_engine("batched")(ds, device=DEV, device_db=lane_db, scan_impl="xla_deferred")
+    log(f"[{tag}] engine: db_tile={eng.db.db_tile} R={eng.bin_top} k'={eng.kprime} "
+        f"scan_impl={eng.scan_impl} certified={eng.certified}")
+    assert eng.scan_impl == "deferred" and eng.certified
+    eng.search(generate_queries(eng.query_batch, seed=102, categories=workload.CATEGORIES))
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    ids, dists = eng.search(qs)
+    wall = time.perf_counter() - t0
+    launches, ladder = dict(kernels.launches), dict(eng.last_ladder)
+    bodies = dict(kernels.k1_body_launches)
+    log(f"[{tag}] search {qs.m} queries: {wall:.3f} s = {qs.m / wall:.1f} QPS; "
+        f"launches {launches}; K1 bodies {bodies}; ladder {ladder}")
+    want = dict.fromkeys(kernels.launches, 0)
+    want["packed_scan_v3"] = ladder.get("rung1_runs", 0)
+    assert launches == want, (launches, want)
+    assert bodies == {"wgmma": want["packed_scan_v3"], "simt": 0}, bodies
+    phases = PhaseTimer(device=DEV)
+    eng.search(qs, phases=phases)
+    log(f"[{tag}] phases (fenced run): {json.dumps(phases.as_dict())}")
+    sub = ref["sub"]
+    rec = recall_at_k(ids[:64], ref["oids"], dists[:64], ref["odists"])
+    res = compare_distances(
+        recompute_result_distances(ds, sub, ids[:64].astype(np.int64)), ref["oracle_d"])
+    full = compare_distances(recompute_result_distances(ds, qs, ids.astype(np.int64)),
+                             ref["stream_d"])
+    log(f"[{tag}] oracle (64 queries): recall@100={rec} dist={res.status}; vs phase 4's "
+        f"stream path, all {qs.m} queries: {full.status} max|Δ|={full.max_abs_diff} "
+        f"beyond={full.num_exceeding}")
+    assert rec == 1.0 and res.ok and full.ok, (rec, res, full)
+    return dict(qps=qs.m / wall, launches=launches, bodies=bodies, ladder=ladder)
+
+
+def path_strategies(ds, qs, ref, lane_db) -> dict:
+    """Phase 10c: the streaming scan (``scan_impl="xla"``) with
+    ``topk_strategy`` ``"sort"`` (exact: within 0.002 of phase 4's
+    streaming answer) and ``"binned"`` (approximate: its recall against
+    that answer, ≥ 0.95) on the first 1024 of phase 4's queries."""
+    sub = QuerySet(qtype=qs.qtype[:1024], v=qs.v[:1024], l=qs.l[:1024], r=qs.r[:1024],
+                   V=qs.V[:1024])
+    stream_d = ref["stream_d"][:1024]
+    out = {}
+    for strategy in ("sort", "binned"):
+        tag = f"D=1e+06 fp32 stream {strategy}"
+        eng = get_engine("batched")(ds, device=DEV, device_db=lane_db, scan_impl="xla",
+                                    topk_strategy=strategy)
+        eng.search(generate_queries(64, seed=103, categories=workload.CATEGORIES))
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        ids, dists = eng.search(sub)
+        wall = time.perf_counter() - t0
+        assert sum(kernels.launches.values()) == 0, kernels.launches
+        assert np.isfinite(dists).all() and (ids < ds.n).all()
+        got_d = recompute_result_distances(ds, sub, ids.astype(np.int64))
+        full = compare_distances(got_d, stream_d)
+        # recall against the exact answer: its distances as the ids' stand-in
+        rec = float(np.mean([np.isin(a, b).mean() for a, b in zip(got_d, stream_d)]))
+        log(f"[{tag}] search {sub.m} queries: {wall:.3f} s = {sub.m / wall:.1f} QPS; vs "
+            f"phase 4's stream answer: {full.status} max|Δ|={full.max_abs_diff} "
+            f"beyond={full.num_exceeding}; recall@100 {rec:.5f}")
+        if strategy == "sort":
+            assert full.ok, full
+        else:
+            assert rec >= 0.95, rec
+        out[strategy] = dict(qps=sub.m / wall, status=full.status, recall=rec)
+        del eng
+    return out
+
+
+def path_bf16_storage(ds, qs, ref) -> dict:
+    """Phase 10d: ``dtype=bfloat16`` (the uncertified bf16 storage; K1 reads
+    it as its bf16 plane) at D=10⁶: recall with a 50.0 distance tolerance
+    ≥ 0.95 on the 64 oracle queries and the relative distance error of
+    every reported id < 0.05 (``tests/test_engines.py:150-172``)."""
+    tag = "D=1e+06 bf16 storage"
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(DEV)
+    eng = get_engine("batched")(ds, device=DEV, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(DEV) - before
+    log(f"[{tag}] engine: Vp {eng.db.Vp.dtype} n_pad={eng.db.n_pad} R={eng.bin_top} "
+        f"scan_impl={eng.scan_impl} certified={eng.certified}; holds {held / 1e9:.3f} GB")
+    assert eng.db.Vp.dtype == torch.bfloat16 and not eng.certified
+    eng.search(generate_queries(eng.query_batch, seed=104, categories=workload.CATEGORIES))
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    ids, dists = eng.search(qs)
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    want = dict.fromkeys(kernels.launches, 0)
+    if eng.scan_impl == "v3":
+        want["packed_scan_v3"] = -(-qs.m // eng.query_batch)
+    assert launches == want, (launches, want)
+    rec = recall_at_k(ids[:64], ref["oids"], dists[:64], ref["odists"], tolerance=50.0)
+    true_d = recompute_result_distances(ds, qs, ids.astype(np.int64))
+    rel = float((np.abs(dists - true_d) / np.maximum(true_d, 1.0)).max())
+    log(f"[{tag}] search {qs.m} queries: {wall:.3f} s = {qs.m / wall:.1f} QPS; launches "
+        f"{launches}; recall@100 (tolerance 50, 64 oracle queries) = {rec}; max relative "
+        f"distance error {rel:.6f}")
+    assert rec >= 0.95 and rel < 0.05, (rec, rel)
+    del eng
+    torch.cuda.empty_cache()
+    return dict(qps=qs.m / wall, launches=launches, recall_tol50=rec, max_rel_err=rel,
+                held_gb=held / 1e9)
+
+
+NATIVE_ROWS, NATIVE_QUERIES = 1_000_000, 1000
+
+
+def path_native_cli() -> dict:
+    """Phase 10e: the port's CLI on a D=10⁶ file pair: gen-data and
+    gen-queries, the native library (its file name), the native mmap read
+    against the NumPy memmap read bit for bit, ``run`` (batched, the card)
+    with its host counters, and the counters the host allowed."""
+    import contextlib
+    import io
+
+    from hvq_tpu_torch import native
+    from hvq_tpu_torch.cli.main import main as cli
+
+    tag = "native + CLI D=1e+06"
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        data, query = os.path.join(d, "data.bin"), os.path.join(d, "query.bin")
+        t0 = time.perf_counter()
+        assert cli(["gen-data", data, str(NATIVE_ROWS), "--categories", "100"]) == 0
+        assert cli(["gen-queries", query, str(NATIVE_QUERIES), "--categories", "100"]) == 0
+        log(f"[{tag}] gen-data + gen-queries {time.perf_counter() - t0:.1f} s")
+        assert native.available()
+        lib = os.path.basename(native.build_info["path"])
+        assert lib.startswith("libhvq_native_")
+        t0 = time.perf_counter()
+        rec = native.read_records(data, 102)
+        t_native = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mm = np.array(np.memmap(data, dtype=np.float32, mode="r", offset=4)).reshape(-1, 102)
+        t_numpy = time.perf_counter() - t0
+        same = rec.shape == mm.shape and np.array_equal(rec.view(np.int32), mm.view(np.int32))
+        log(f"[{tag}] native library {lib}; read {rec.shape}: native {t_native:.3f} s, "
+            f"numpy memmap {t_numpy:.3f} s, bit-identical {same}")
+        assert same
+        del rec, mm
+        err = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            rc = cli(["run", "--data", data, "--queries", query, "--engine", "batched",
+                      "--device", DEV.type, "--output", os.path.join(d, "out.bin")])
+        out["run_s"] = time.perf_counter() - t0
+        assert rc == 0, err.getvalue()
+        lines = err.getvalue().splitlines()
+        # the counter table (an aligned header row "wall_s ..." and its
+        # values), or the line saying the host allowed no counter
+        idx = next((i for i, ln in enumerate(lines) if ln.split()[:1] == ["wall_s"]), None)
+        table = (lines[idx : idx + 2] if idx is not None
+                 else [ln for ln in lines if ln.startswith("host counters:")])
+        log(f"[{tag}] run --engine batched: {out['run_s']:.1f} s; its counters "
+            f"{table}; {[ln for ln in lines if ' QPS' in ln]}")
+        assert len(table) in (1, 2), lines
+    with native.PerfCounters() as pc:
+        np.dot(np.ones((512, 512)), np.ones((512, 512)))
+    pc.close()
+    log(f"[{tag}] counters the host allowed: {sorted(pc.values)} of "
+        f"{list(native.PERF_COUNTER_NAMES)}; report {pc.report()}")
+    assert set(pc.values) <= set(native.PERF_COUNTER_NAMES)
+    return dict(library=lib, read_native_s=t_native, read_numpy_s=t_numpy,
+                counters=sorted(pc.values), cli_table=table, **out)
 
 
 HARNESS_ROWS, HARNESS_QUERIES = 100_000, 1000
 
 
 def path_harness() -> dict:
-    """Phase 10: the CLI in process on the card: gen-data 10⁵ and
+    """Phase 11: the CLI in process on the card: gen-data 10⁵ and
     gen-queries 10³ (100 categories), build-index of both kinds, ``run`` of
     every ported engine but the oracle (paged resilient with 16384-row
     windows, partitioned and ivf from their checkpoints, the mesh engines
@@ -1509,16 +1847,22 @@ def path_harness() -> dict:
 
 def kernel_entries(r6: dict, r7: dict, r8: dict, worst: dict, cert: dict,
                    deterministic: dict, library: str, paged: dict | None = None,
-                   mesh: dict | None = None) -> list:
+                   mesh: dict | None = None, options: dict | None = None) -> list:
     """The kernels line's entries of K1–K4 from the main paths' results
-    (phases 4–7, phase 8's paged engine and phases 9a–9c's mesh engines
-    when given: ``mesh`` = {"sharded", "sharded_k3", "partitioned_sharded"}),
-    phase 3's worst errors, phase 3b's certificate ratios and phase 3c's
-    deterministic cases."""
+    (phases 4–7, phase 8's paged engine, phases 9a–9c's mesh engines and
+    phase 10's repaired engines and ``xla_deferred`` ladder when given:
+    ``mesh`` = {"sharded", "sharded_k3", "partitioned_sharded"},
+    ``options`` = {engine name: its phase-10 result}), phase 3's worst
+    errors, phase 3b's certificate ratios and phase 3c's deterministic
+    cases."""
     paths = [r6["v3"], r6["v1"], r6["v2"], r7, r8] + ([paged] if paged else [])
     if mesh:
         paths += [mesh["sharded"], mesh["sharded"]["one_shard"], mesh["sharded_k3"],
                   mesh["partitioned_sharded"]]
+    if options:
+        paths += [dict(r, lane_bodies={n: {"wgmma": 0, "simt": 0}
+                                       for n in kernels.lane_body_launches})
+                  for r in options.values()]
     timing = ("ms", "plain_ms", "bound_ms", "bound_by", "product_only_matmul_ms")
     entries = []
     for name, impl in (("packed_scan_v3", "v3"), ("packed_scan", "v1"),
@@ -1593,6 +1937,12 @@ def kernel_entries(r6: dict, r7: dict, r8: dict, worst: dict, cert: dict,
                          qps_sharded_1shard_d1e7=sh["one_shard"]["qps"],
                          qps_partitioned_sharded_d1e7=ps["qps"])
                 e["shapes"]["shard_d1e7_fp32"] = {k: sh["shard"][k] for k in timing}
+            if options:
+                # phase 10: K1 on the repaired engines' paths and the
+                # xla_deferred engine's rung 1
+                e.update(launches_phase10={k: r["launches"][name]
+                                           for k, r in options.items()},
+                         qps_phase10={k: r["qps"] for k, r in options.items()})
         entries.append(e)
     return entries
 
@@ -1612,31 +1962,62 @@ def main() -> int:
     deterministic = {name: determinism(name) for name in kernels.launches}
     log("TPU probe kernels (phase 3d):")
     probes = probe_phase(os.path.basename(probe_kernels.build_info["path"]))
-    r6, reuse_d1e6 = paths_d1e6()
+    r6, reuse_d1e6, lane_db = paths_d1e6()
     torch.cuda.empty_cache()
     r7, reused = path_d1e7()
     r8 = path_partitioned(reused)
-    partitioned_ids = r8.pop("ids")
-    ds, qs, _, ref, batched_ids = reused
-    del reused
+    partitioned_ids, index7 = r8.pop("ids"), r8.pop("index")
+    ds, qs, eng6, ref, batched_ids = reused
+    db6 = eng6.db           # phase 10a searches phase 6's database again
+    del reused, eng6
     torch.cuda.empty_cache()
     r9 = path_paged(ds, qs, ref, batched_ids)
+    paged_ids = r9.pop("ids")
     r10 = path_ivf()
     torch.cuda.reset_peak_memory_stats(DEV)
     mesh = {"sharded": path_sharded(ds, qs, ref, batched_ids)}
+    sharded_ids = mesh["sharded"].pop("ids")
     mesh["sharded_k3"] = path_sharded_k3(*reuse_d1e6)
-    del reuse_d1e6
     mesh["partitioned_sharded"] = path_partitioned_sharded(ds, qs, ref, partitioned_ids)
-    del ds, qs, ref, batched_ids, partitioned_ids
+    psharded_ids = mesh["partitioned_sharded"].pop("ids")
+    log("phase 10a: repair_bins=2 on the card")
+    r10a = path_repair(
+        ds, qs, ref, db6, index7,
+        answers=dict(batched=batched_ids, partitioned=partitioned_ids, paged=paged_ids,
+                     sharded=sharded_ids, partitioned_sharded=psharded_ids),
+        bases=dict(batched=r7["ladder"], paged=r9["reruns"],
+                   partitioned=dict(r8["route"]["ladder"], flagged=r8["route"]["suspects"],
+                                    dense_straddling=r8["route"]["dense_straddling"]),
+                   sharded=mesh["sharded"]["ladder"],
+                   partitioned_sharded=dict(
+                       mesh["partitioned_sharded"]["route"]["ladder"],
+                       flagged=mesh["partitioned_sharded"]["route"]["suspects"],
+                       dense_straddling=mesh["partitioned_sharded"]["route"]["dense_straddling"])))
+    del ds, qs, ref, batched_ids, partitioned_ids, paged_ids, sharded_ids, psharded_ids
+    del db6, index7
+    torch.cuda.empty_cache()
+    log("phases 10b-10e: xla_deferred, the top-k strategies, bf16 storage, native + CLI")
+    r10b = path_deferred(*reuse_d1e6, lane_db)
+    r10c = path_strategies(*reuse_d1e6, lane_db)
+    del lane_db
+    torch.cuda.empty_cache()
+    r10d = path_bf16_storage(*reuse_d1e6)
+    del reuse_d1e6
+    r10e = path_native_cli()
     r11 = path_harness()
     log(f"paged {r9['qps']:.1f} QPS, ivf {r10['qps']:.1f} QPS (recall {r10['recall']}), "
         f"sharded {mesh['sharded']['qps']:.1f} QPS ({MESH_SHARDS} virtual shards; "
         f"1 shard {mesh['sharded']['one_shard']['qps']:.1f}), sharded K3 "
         f"{mesh['sharded_k3']['qps']:.1f}, partitioned_sharded "
         f"{mesh['partitioned_sharded']['qps']:.1f}, harness runs {r11['run_s']}")
+    log("phase 10 summary: " + json.dumps(dict(
+        repair={k: dict(qps=v["qps"], ladder=v["ladder"], base_ladder=v["base_ladder"],
+                        repair_phase=v["repair_phase"], terms=v["terms"])
+                for k, v in r10a.items()},
+        xla_deferred=r10b, strategies=r10c, bf16_storage=r10d, native_cli=r10e)))
     library = os.path.basename(kernels.build_info["path"])
     entries = kernel_entries(r6, r7, r8, worst, cert, deterministic, library,
-                             paged=r9, mesh=mesh) + probes
+                             paged=r9, mesh=mesh, options=dict(r10a, xla_deferred=r10b)) + probes
     log(card)
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {

@@ -23,10 +23,14 @@ Subcommands:
 * ``gen-queries`` — src/write_query.c analogue.
 
 Every file goes through the port's ``utils/formats``, byte-identical to the
-JAX package's for the same arguments. The JAX CLI's ``--platform`` and
-``--cache-dir`` have no counterpart here (``--device`` takes their
-place), and its host hardware counters around the search
-(``hvq_tpu.native.PerfCounters``) are not ported yet.
+JAX package's for the same arguments. ``run`` brackets the search in the
+host hardware counters of ``hvq_tpu_torch.native.PerfCounters``, as the
+reference's PerfEvent brackets vec_query (src/test.cpp:82-92), and prints
+the counters the host allowed per query, as the JAX CLI does (one line
+saying so when the host allowed none); with no C++ compiler to build the
+native library it says so and runs without them.
+The JAX CLI's ``--platform`` and ``--cache-dir`` have no counterpart here
+(``--device`` takes their place).
 
 Exit codes: 0 = ok/similar, 1 = usage error, 2 = comparison found
 differences beyond tolerance.
@@ -41,6 +45,23 @@ import sys
 import time
 
 from hvq_tpu_torch.models.registry import available_engines
+
+
+def _print_counters(rep: dict, m: int, wall: float) -> None:
+    """Counter table for the timed search region, per-query normalized —
+    the reference's BenchmarkParameters dump (perfevent.hpp:260-320: one
+    aligned header/value row pair on stderr), as the JAX CLI prints it."""
+    cols = [("wall_s", f"{wall:.3f}")]
+    for name in ("cycles", "instructions", "L1d_misses", "LLC_misses",
+                 "branch_misses"):
+        if name in rep:
+            cols.append((f"{name}/q", f"{rep[name] / max(m, 1):.1f}"))
+    for name in ("IPC", "GHz"):
+        if name in rep:
+            cols.append((name, f"{rep[name]:.3f}"))
+    widths = [max(len(h), len(v)) for h, v in cols]
+    print(" ".join(h.rjust(w) for (h, _), w in zip(cols, widths)), file=sys.stderr)
+    print(" ".join(v.rjust(w) for (_, v), w in zip(cols, widths)), file=sys.stderr)
 
 
 def _engine_opts(opts, accepted, engine: str) -> dict:
@@ -107,12 +128,29 @@ def _cmd_run(args) -> int:
         profiler = trace(args.profile)
     else:
         profiler = contextlib.nullcontext()
+    # host hardware counters bracket the search, as the reference's
+    # PerfEvent brackets vec_query (src/test.cpp:82-92)
+    from hvq_tpu_torch import native
+
+    if native.available():
+        counters = native.PerfCounters()
+    else:
+        print("host counters: no C++ compiler to build hvq_tpu_torch.native",
+              file=sys.stderr)
+        counters = contextlib.nullcontext()
     with profiler:
         t0 = time.perf_counter()
-        ids, _ = engine.search(qs, k=args.k, sample_proportion=args.sample_proportion,
-                               **search_kw)
+        with counters:
+            ids, _ = engine.search(qs, k=args.k, sample_proportion=args.sample_proportion,
+                                   **search_kw)
         wall = time.perf_counter() - t0
     timer.add("search", wall)
+    if isinstance(counters, native.PerfCounters):
+        counters.close()
+        if counters.values:
+            _print_counters(counters.report(), qs.m, wall)
+        else:
+            print("host counters: perf_event_open allowed none", file=sys.stderr)
     with timer.phase("write_results"):
         formats.save_knn(ids, args.output)
         if args.save_dist:

@@ -34,7 +34,12 @@ import torch
 
 from hvq_tpu_torch import constants as _c
 from hvq_tpu_torch.utils.formats import Dataset
-from hvq_tpu_torch.models.device_db import resolve_device, upload, upload_scan_plane
+from hvq_tpu_torch.models.device_db import (
+    resolve_device,
+    storage_dtype,
+    upload,
+    upload_scan_plane,
+)
 
 # Row chunks of the on-device permutation gather: the temporary of one
 # chunk is 1/8 of the database, so the peak is source + output.
@@ -46,10 +51,11 @@ class SortedView:
     """One reordered database copy on the device plus host sort keys."""
 
     # device tensors, rows padded to a multiple of db_tile
-    Vp: torch.Tensor        # (n_pad, 128) fp32
+    Vp: torch.Tensor        # (n_pad, 128) fp32, or bf16 storage
     C: torch.Tensor         # (n_pad,) fp32, padding rows +inf
     T: torch.Tensor         # (n_pad,) fp32, padding rows +inf
-    d_norms: torch.Tensor   # (n_pad,) fp32 ‖d‖² of the fp32 rows
+    d_norms: torch.Tensor   # (n_pad,) fp32 ‖d‖² of the fp32 rows (before
+    #                         any bf16 storage cast, as the JAX view)
     oid: torch.Tensor       # (n_pad,) int32 original ids, padding rows n
     # host sort keys in view order
     C_key: np.ndarray       # (n,)
@@ -127,9 +133,11 @@ def _build_view(
     device: torch.device,
     scan_store: str = "fp32",
     n_pad: int | None = None,
+    dtype=torch.float32,
 ) -> SortedView:
     """The view of ``ds`` in the row order ``perm``, padded to ``n_pad``
-    rows (default: whole tiles).
+    rows (default: whole tiles), its rows stored in ``dtype`` (fp32, or
+    bf16 for the uncertified storage of ``dtype=torch.bfloat16``).
 
     The raw vectors are uploaded (pinned) in original row order; the
     permutation gather, the padding and the norms run on the device,
@@ -141,6 +149,9 @@ def _build_view(
     """
     if scan_store not in ("fp32", "bf16"):
         raise ValueError(f"unknown scan_store {scan_store!r}")
+    dtype = storage_dtype(dtype)
+    if scan_store == "bf16" and dtype != torch.float32:
+        raise ValueError("scan_store='bf16' needs fp32 primary storage")
     n, dim = ds.V.shape
     if n_pad is None:
         n_pad = -(-n // db_tile) * db_tile
@@ -155,6 +166,8 @@ def _build_view(
         d_norms[s:e] = (g * g).sum(dim=1)
         del g
     del V_dev, idx
+    if dtype != torch.float32:
+        Vp = Vp.to(dtype)
     V_scan = Vp.to(torch.bfloat16) if scan_store == "bf16" else None
 
     def _pad(a, fill):
@@ -183,6 +196,7 @@ class PartitionedIndex:
     _ds: Optional[Dataset] = None           # source of the lazy time view
     _db_tile: int = 8192
     _scan_store: str = "fp32"
+    _dtype: torch.dtype = torch.float32
     # seconds of each build step: "sort", "cat_view", "time_view"
     build_seconds: dict = dataclasses.field(default_factory=dict)
 
@@ -209,6 +223,7 @@ class PartitionedIndex:
             self._time_view = _build_view(
                 self._ds, perm, self._db_tile, self.device,
                 scan_store=self._scan_store, n_pad=self.cat_view.n_pad,
+                dtype=self._dtype,
             )
             self.build_seconds["time_view"] = time.perf_counter() - t0
         return self._time_view
@@ -216,13 +231,14 @@ class PartitionedIndex:
     @classmethod
     def build(cls, ds: Dataset, db_tile: int = 8192,
               device: torch.device | str = "cuda", scan_store: str = "fp32",
-              row_multiple: int | None = None):
+              row_multiple: int | None = None, dtype=torch.float32):
         """Sort on the host and build the cat view; the time view is built
         on first use (:attr:`time_view`), with the cat view's rows.
 
         ``row_multiple`` (default ``db_tile``): pad the rows to its multiple
         instead; the mesh engines need ``n_d · db_tile``, so every shard
-        holds whole tiles of both views.
+        holds whole tiles of both views. ``dtype``: the views' row storage
+        (``torch.bfloat16``: rounded rows, ‖d‖² from the fp32 ones).
 
         ``HVQ_PERM_CACHE=<path.npz>`` keeps the host sort products (the
         (C, T) permutation and ``T_sorted``) across processes; the device
@@ -254,8 +270,9 @@ class PartitionedIndex:
         out = cls(
             cat_view=_build_view(ds, cat_perm, db_tile, device,
                                  scan_store=scan_store,
-                                 n_pad=-(-ds.n // rm) * rm),
+                                 n_pad=-(-ds.n // rm) * rm, dtype=dtype),
             T_sorted=T_sorted, _ds=ds, _db_tile=db_tile, _scan_store=scan_store,
+            _dtype=storage_dtype(dtype),
         )
         out.build_seconds.update(sort=t1 - t0, cat_view=time.perf_counter() - t1)
         return out

@@ -28,7 +28,11 @@ _IVF_STATS = ("cat_vals", "cat_freq", "t_sample")
 
 
 def _host(t) -> np.ndarray:
-    return t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+    """A device array as NumPy; bf16 storage (``dtype=bfloat16``) saves
+    as its exact fp32 values (NumPy has no bf16)."""
+    if isinstance(t, torch.Tensor):
+        return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+    return np.asarray(t)
 
 
 def save_partitioned(idx: PartitionedIndex, path: str | os.PathLike) -> None:

@@ -21,7 +21,8 @@ import torch
 from hvq_tpu_torch import constants as _c
 from hvq_tpu_torch.ops.distance import exact_distances, tile_scores
 from hvq_tpu_torch.ops.masks import block_mask
-from hvq_tpu_torch.ops.topk import final_topk, merge_topk
+from hvq_tpu_torch.ops.scan import last_round_dists
+from hvq_tpu_torch.ops.topk import BIN, final_topk, merge_topk
 
 # Elements of the (B, rows) score block a listed-tile scan holds at once.
 _STREAM_CHUNK = 1 << 26
@@ -50,6 +51,8 @@ def scan_database(
     precision: str = "highest",
     oid: torch.Tensor | None = None,
     tile_index=None,
+    strategy: str = "topk",
+    compute_dtype: torch.dtype = torch.float32,
 ):
     """Streaming masked-distance top-k' over every tile (no bin reduce).
 
@@ -66,20 +69,27 @@ def scan_database(
     listed tiles are scored ``_STREAM_CHUNK`` elements at a time, one
     top-k′ merge per chunk: the same candidate set as a merge per tile, up
     to which of two equal scores survives the cut.
+
+    ``strategy``: the merge of ``ops.topk.merge_topk`` (``"binned"``
+    reduces each 128-column group of a tile, or of a chunk, to its best
+    entry first: approximate). ``compute_dtype``: the query and the rows
+    are cast to it before the product (``torch.bfloat16``: the products
+    of the rounded values, exact in fp32, as the JAX ``compute_dtype``).
     """
     B = qb.qV.shape[0]
     device = Vp.device
+    qV = qb.qV.to(compute_dtype)
     scores = torch.full((B, kprime), float("inf"), device=device)
     ids = torch.zeros((B, kprime), dtype=torch.int32, device=device)
     lane = torch.arange(db_tile, dtype=torch.int32, device=device)
 
     def merge(scores, ids, rows, pos):
-        s = tile_scores(qb.qV, Vp[rows], dn[rows], precision)
+        s = tile_scores(qV, Vp[rows].to(compute_dtype), dn[rows], precision)
         gid = pos if oid is None else oid[rows]
         ok = block_mask(C[rows], T[rows], gid, sn, qb.active_c, qb.v,
                         qb.active_t, qb.l, qb.r)
         s = s.masked_fill(~ok, float("inf"))
-        return merge_topk(scores, ids, s, pos.expand(B, -1), kprime)
+        return merge_topk(scores, ids, s, pos.expand(B, -1), kprime, strategy)
 
     if tile_index is None:
         for base in range(0, Vp.shape[0], db_tile):
@@ -143,6 +153,123 @@ def finalize_with_tail(
     final_d = torch.where(valid, sel_d, pad_d)
     final_d, order = torch.sort(final_d, dim=1, stable=True)
     return torch.gather(final_ids, 1, order), final_d
+
+
+def repair_thr_pre(scores, k: int, qV, dn_max: float, rel_mm: float,
+                   rel_t: float, abs_: float):
+    """Provisional saturation threshold (B,) for the repair's gather gate
+    (``hvq_tpu.models.common.repair_thr_pre``): the k-th candidate
+    ESTIMATE plus DOUBLED slack. The k-th exact distance can only be
+    smaller than estimate + slack, so thr_pre ≥ the final certificate
+    threshold and gating a bin off at sel_v ≥ thr_pre is sound. +inf
+    (repair every selected bin) when fewer than k candidates are kept.
+    One definition for every engine."""
+    if k > scores.shape[1]:
+        return torch.full(scores.shape[:1], float("inf"), device=scores.device)
+    qf = qV.float()
+    qn = (qf * qf).sum(dim=1)
+    t_pre = scores[:, k - 1]
+    return t_pre + 2.0 * (rel_mm * (qn + dn_max) + rel_t * t_pre + abs_)
+
+
+def cert_suspect(t_bin, t_l2, t_kc, debug: bool):
+    """The certificate's suspect column from its per-term flags (bool
+    (B,) each, None = term absent). ``debug`` (``HVQ_CERT_TERMS=1``
+    forensics): an int32 bitmask, 1 = bin (after a repair: the residual
+    bin), 2 = level 2, 4 = k′ cut; nonzero still reads as suspect.
+    Otherwise a plain bool OR."""
+    terms = [(t, w) for t, w in ((t_bin, 1), (t_l2, 2), (t_kc, 4)) if t is not None]
+    if debug:
+        return sum(t.to(torch.int32) * w for t, w in terms)
+    out = terms[0][0]
+    for t, _ in terms[1:]:
+        out = out | t
+    return out
+
+
+def bin_repair_candidates(
+    out_s: torch.Tensor,        # (B, W) packed-scan distances (quantized)
+    cand_scores: torch.Tensor,  # (B, k') selected estimates, +inf = empty
+    cand_pos: torch.Tensor,     # (B, k') their positions (int32)
+    nt: int,
+    bin_top: int,
+    bins: int,
+    db_tile: int,
+    layout: str,
+    C: torch.Tensor,
+    T: torch.Tensor,
+    oid: torch.Tensor,
+    qb: QueryBatch,
+    sn: int,
+    rb: int,
+    row0: int | None = None,
+    id_offset: int | None = None,
+    thr_pre: torch.Tensor | None = None,
+):
+    """In-program repair of the certificate's bin term
+    (``hvq_tpu.models.common.bin_repair_candidates``).
+
+    The ``rb`` most-saturated bins (the smallest per-bin R-th kept values
+    of ``last_round_dists``, by iterated argmin) give up all 128 of their
+    rows as extra refine candidates, so the bin term becomes
+    ``remaining_min < thr``: the (rb+1)-th most-saturated bin still under
+    the threshold. The selection is threshold-free. A bin's rows decode
+    as the scan that produced ``out_s`` laid them out: axis1 ``tile·Dt +
+    s·bins + bin``, lane ``tile·Dt + bin·128 + s``; ``nt`` is the tiles
+    the scan covered (a window's own count).
+
+    The rows are masked as the scan masks them: ``oid[pos] < sn`` (the
+    ORIGINAL id), category and time. All-+inf bins (fewer saturated bins
+    than ``rb``) are masked, and rows already among the candidates are
+    dropped, so the refined top-k never holds a row twice; the compare
+    runs in the space the candidates carry. ``row0``: a window's offset,
+    applied BEFORE the attribute gathers (``C``, ``T``, ``oid`` are the
+    whole view's). ``id_offset``: applied only to the RETURNED positions
+    and the dedup (shard-local gathers, global candidate ids).
+    ``thr_pre`` (B,): a provisional threshold ≥ the final one
+    (:func:`repair_thr_pre`); a selected bin at or above it is gated to
+    row 0, masked.
+
+    Returns (scores', pos', remaining_min (B,)): the repair rows appended
+    with score 0 (refine me) or +inf.
+    """
+    B = out_s.shape[0]
+    work = last_round_dists(out_s, nt, bin_top, bins)        # (B, nbins)
+    sel_b, sel_v = [], []
+    for _ in range(rb):
+        v, bi = work.min(dim=1)
+        sel_v.append(v)
+        sel_b.append(bi)
+        work = work.scatter(1, bi[:, None], float("inf"))
+    remaining_min = work.amin(dim=1)
+    del work
+    sel_b = torch.stack(sel_b, dim=1)                        # (B, rb) int64
+    sel_v = torch.stack(sel_v, dim=1)                        # (B, rb)
+    tile, b = sel_b // bins, sel_b % bins
+    s_iota = torch.arange(BIN, device=out_s.device)
+    if layout == "axis1":
+        pos = tile[:, :, None] * db_tile + s_iota * bins + b[:, :, None]
+    else:
+        pos = tile[:, :, None] * db_tile + b[:, :, None] * BIN + s_iota
+    if row0 is not None:
+        pos = pos + int(row0)                                # window: global
+    bin_live = torch.isfinite(sel_v)
+    if thr_pre is not None:
+        bin_live &= sel_v < thr_pre[:, None]
+        pos = torch.where(bin_live[:, :, None], pos, 0)
+    pos = pos.reshape(B, rb * BIN)
+    ok = bin_live[:, :, None].expand(B, rb, BIN).reshape(B, rb * BIN)
+    ok = ok & (oid[pos] < sn)
+    ok &= (~qb.active_c[:, None]) | (C[pos] == qb.v[:, None])
+    Tg = T[pos]
+    ok &= (~qb.active_t[:, None]) | ((Tg >= qb.l[:, None]) & (Tg <= qb.r[:, None]))
+    out_pos = (pos if id_offset is None else pos + int(id_offset)).to(torch.int32)
+    dup = ((out_pos[:, :, None] == cand_pos[:, None, :])
+           & torch.isfinite(cand_scores)[:, None, :]).any(dim=2)
+    rep = torch.where(ok & ~dup, 0.0, float("inf"))
+    return (torch.cat([cand_scores, rep], dim=1),
+            torch.cat([cand_pos.to(torch.int32), out_pos], dim=1),
+            remaining_min)
 
 
 def tail_block_np(V: np.ndarray, t: int = 128) -> np.ndarray:

@@ -1,9 +1,12 @@
 """Device-resident database layout: the counterpart of
 ``hvq_tpu.models.device_db``.
 
-* ``Vp``      (n_pad, 128) fp32 — vectors zero-padded from 100 to 128 lanes,
+* ``Vp``      (n_pad, 128) — vectors zero-padded from 100 to 128 lanes, in
+  the storage dtype: fp32, or bf16 for the uncertified fast mode
+  (``dtype=torch.bfloat16``: half the memory, rows rounded once),
 * ``C``, ``T`` (n_pad,) fp32   — categorical and timestamp attributes,
-* ``d_norms`` (n_pad,) fp32    — ‖d‖², computed on the device from ``Vp``,
+* ``d_norms`` (n_pad,) fp32    — ‖d‖², computed on the device from the
+  STORED ``Vp`` (the rounded rows in bf16 storage, as the expansion needs),
 * ``V_scan``  (n_pad, 128) bf16, optional — the scan plane that only the
   selection scan reads; refinement keeps gathering exact fp32 ``Vp`` rows.
 
@@ -116,6 +119,20 @@ def upload_scan_plane(V_scan, shape: tuple, device: torch.device) -> torch.Tenso
     return upload(v16, device)
 
 
+STORAGE_DTYPES = {None: torch.float32, "float32": torch.float32,
+                  torch.float32: torch.float32, "bfloat16": torch.bfloat16,
+                  torch.bfloat16: torch.bfloat16}
+
+
+def storage_dtype(dtype) -> torch.dtype:
+    """The primary storage dtype a ``dtype=`` keyword names: fp32 (also
+    None, "float32") or bf16 ("bfloat16"); anything else raises."""
+    try:
+        return STORAGE_DTYPES[dtype]
+    except (KeyError, TypeError):
+        raise ValueError(f"unknown storage dtype {dtype!r}; float32 or bfloat16") from None
+
+
 def _host_zeros(shape, device: torch.device) -> torch.Tensor:
     """Zeroed fp32 host buffer, pinned when it is bound for a CUDA device."""
     return torch.zeros(shape, dtype=torch.float32,
@@ -124,7 +141,7 @@ def _host_zeros(shape, device: torch.device) -> torch.Tensor:
 
 @dataclasses.dataclass
 class DeviceDB:
-    Vp: torch.Tensor        # (n_pad, 128) fp32
+    Vp: torch.Tensor        # (n_pad, 128) fp32, or bf16 storage
     C: torch.Tensor         # (n_pad,) fp32
     T: torch.Tensor         # (n_pad,) fp32
     d_norms: torch.Tensor   # (n_pad,) fp32
@@ -157,16 +174,25 @@ class DeviceDB:
         scan_store: str = "fp32",
         device: torch.device | str = "cuda",
         row_multiple: int | None = None,
+        dtype=torch.float32,
     ) -> "DeviceDB":
         """Upload a host Dataset, lane-padding columns and tile-padding rows.
 
         ``scan_store="bf16"`` also keeps a bf16 copy for the selection scan,
         rounded on the device. ``row_multiple`` (default ``db_tile``) pads
         the rows to its multiple instead: the mesh engines need
-        ``n_d · db_tile``, so every shard holds whole tiles.
+        ``n_d · db_tile``, so every shard holds whole tiles. ``dtype``:
+        the primary storage (:func:`storage_dtype`); bf16 rounds ``Vp`` on
+        the device and takes ‖d‖² from the rounded rows, and it cannot go
+        with ``scan_store="bf16"`` (that mode already scans its storage).
         """
         if scan_store not in ("fp32", "bf16"):
             raise ValueError(f"unknown scan_store {scan_store!r}")
+        dtype = storage_dtype(dtype)
+        if scan_store == "bf16" and dtype != torch.float32:
+            raise ValueError(
+                "scan_store='bf16' needs fp32 primary storage (the bf16 "
+                "fast mode already scans its own storage)")
         mult = row_multiple or db_tile
         if mult % db_tile:
             raise ValueError("row_multiple must be a multiple of db_tile")
@@ -180,13 +206,14 @@ class DeviceDB:
         C.numpy()[:n] = ds.C
         T = _host_zeros(n_pad, device)
         T.numpy()[:n] = ds.T
-        Vp_dev = upload(Vp, device)
+        Vp_dev = upload(Vp, device).to(dtype)
         del Vp
+        Vf = Vp_dev.float()
         return cls(
             Vp=Vp_dev,
             C=upload(C, device),
             T=upload(T, device),
-            d_norms=(Vp_dev * Vp_dev).sum(dim=1),
+            d_norms=(Vf * Vf).sum(dim=1),
             n=n,
             db_tile=db_tile,
             V_scan=Vp_dev.to(torch.bfloat16) if scan_store == "bf16" else None,

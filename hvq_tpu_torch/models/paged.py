@@ -52,7 +52,6 @@ from hvq_tpu_torch.models.batched import (
     Slab,
     _pow2_batch,
     cert_threshold,
-    check_unported,
     pack_query_block,
     slab_scan,
     unpack_query_block,
@@ -116,8 +115,10 @@ class PagedEngine:
       bytes one window may hold); None derives the window from the card's
       free memory at construction (:func:`derived_window_rows`), or takes
       the JAX default of 10¹⁰ bytes on a CPU device.
-    * ``repair_bins`` (0 only) is not ported: any other value raises
-      ``NotImplementedError``. ``dispatch_group`` is accepted and ignored.
+    * ``repair_bins`` > 0: each window's K1 or plain packed scan takes the
+      in-program bin repair (``batched.slab_scan``, axis1, the window's
+      own ``oid``), so the running threshold reads the window's residual
+      bin. ``dispatch_group`` is accepted and ignored.
 
     After ``search()``, ``last_reruns`` says what the rerun did: the
     flagged (window, query) pairs per window and the rerun batches.
@@ -143,7 +144,6 @@ class PagedEngine:
         scan_store: str = "fp32",
         dispatch_group: int = 8,
     ):
-        check_unported(None, repair_bins=repair_bins)
         if precision not in PRECISIONS:
             raise ValueError(f"unknown precision {precision!r}; one of {PRECISIONS}")
         if scan_store not in ("fp32", "bf16"):
@@ -175,6 +175,12 @@ class PagedEngine:
         self.certified = bool(certified and precision in ("high", "highest"))
         self._rel_mm = _CERT_REL_MM_BF16 if self._bf16_plane else _CERT_REL_MM
         self.l2_min_w = int(l2_min_w)
+        # the per-window repair (no gate: the JAX engine has none), and
+        # the streaming rung's merge at fp32, as in the JAX engine
+        self.repair_bins = int(repair_bins)
+        self.repair_gate = False
+        self.topk_strategy = "topk"
+        self.compute_dtype = torch.float32
 
         if window_rows is None:
             if hbm_budget_bytes is None and self.device.type == "cuda":
@@ -218,14 +224,16 @@ class PagedEngine:
 
     # --- one query batch against one resident window ---------------------
     def _scan_window(self, win, Qblk: torch.Tensor, sn: int, w0: int, kp: int,
-                     impl: str, bin_top: int | None, level2: bool = True):
+                     impl: str, bin_top: int | None, level2: bool = True,
+                     phases=None):
         """One (B, QPACK_W) query block against the resident window ``win``
         → device (exact (B, ≤kp) fp32 with +inf empties, gid (B, ≤kp)
         int32 GLOBAL ids, terms (B, 3) fp32 certificate saturation levels
         [bin, level-2, k′-cut], +inf = term absent): the shared per-slab
-        stage (``batched.slab_scan``), K1's positions moved by ``w0``."""
+        stage (``batched.slab_scan``, its ``shard/*`` phases into
+        ``phases``), K1's positions moved by ``w0``."""
         exact, pos, terms = slab_scan(self, Slab(*win), unpack_query_block(Qblk), sn,
-                                      kp, impl, bin_top, self.db_tile, level2)
+                                      kp, impl, bin_top, self.db_tile, level2, phases)
         gid = torch.where(torch.isfinite(exact), pos + w0, 0).to(torch.int32)
         return exact, gid, terms
 
@@ -282,7 +290,8 @@ class PagedEngine:
         """Run the query set; returns (ids (m, k) uint32, dists (m, k) fp32
         or None with ``return_dists=False``). ``phases``: an optional
         ``utils.timing.PhaseTimer`` for the pack, upload, window upload,
-        enqueue, fetch, rerun and finalize phases."""
+        enqueue (and within it each batch's ``shard/*`` stages, the repair
+        among them), fetch, rerun and finalize phases."""
         sn = int(sample_proportion * self.ds.n)
         B, kp = self.query_batch, self.kprime
         with maybe_phase(phases, "search/pack"):
@@ -305,7 +314,7 @@ class PagedEngine:
             with maybe_phase(phases, "search/enqueue"):
                 for s in range(0, m_pad, B):
                     out = self._scan_window(win, Q_dev[s : s + B], sn, w0, kp,
-                                            self.scan_impl, self.bin_top)
+                                            self.scan_impl, self.bin_top, phases=phases)
                     pending.append((s, self._pack(*out)))
             terms_w = np.full((m_pad, 3), np.inf, np.float32)
             with maybe_phase(phases, "search/fetch"):

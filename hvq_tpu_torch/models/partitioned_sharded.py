@@ -22,6 +22,12 @@ rows live:
   (``_enable_window``), as in the JAX engine: wide ranges take the dense
   path, which is exact for every type.
 
+With ``repair_bins`` > 0 each slab's K1 (or plain packed) scan takes the
+in-program bin repair in the slab's own positions (``slab_scan``), and
+the slab's residual bin joins the per-term minimum over the shards like
+any other term; ``HVQ_CERT_TERMS=1`` keeps the merged certificate's
+bitmask per query.
+
 Suspects go through the partitioned engine's ladder: rung 1 this dense
 scan at 2R without level 2, rung 2 the per-shard streaming scan and the
 merge. The views are built whole on the mesh's first device before they
@@ -41,7 +47,6 @@ from hvq_tpu_torch.models import common
 from hvq_tpu_torch.models.batched import (
     Slab,
     certificate,
-    check_unported,
     pack_result,
     slab_scan,
     unpack_query_block,
@@ -107,7 +112,6 @@ class ShardedPartitionedEngine(PartitionedEngine):
         time_view_min_queries: int = 4096,
         time_view_max_bytes: int | None = None,
     ):
-        check_unported(dtype, topk_strategy, repair_bins, repair_gate)
         if scan_impl not in SCAN_IMPLS:
             raise ValueError(f"unknown scan_impl {scan_impl!r}; one of {tuple(SCAN_IMPLS)}")
         self.mesh = engine_mesh(mesh, device)
@@ -121,7 +125,7 @@ class ShardedPartitionedEngine(PartitionedEngine):
             db_tile = 16384 if SCAN_IMPLS[scan_impl] == "v3" else 8192
         index = PartitionedIndex.build(ds, db_tile=db_tile, device=home,
                                        scan_store=scan_store,
-                                       row_multiple=self.n_d * db_tile)
+                                       row_multiple=self.n_d * db_tile, dtype=dtype)
         super().__init__(
             ds, device=home, db_tile=db_tile, query_batch=query_batch, kprime=kprime,
             dtype=dtype, scan_store=scan_store, precision=precision,
@@ -185,7 +189,7 @@ class ShardedPartitionedEngine(PartitionedEngine):
             if v.device not in qbs:
                 qbs[v.device] = unpack_query_block(Q.to(v.device, non_blocking=True))
             e, pos, t = slab_scan(self, _slab(v), qbs[v.device], sn, self.kprime, impl,
-                                  bin_top, v.db_tile, level2, phases)
+                                  bin_top, v.db_tile, level2, phases, k=k)
             exact.append(e)
             oids.append(v.oid[pos.long()])      # slab positions → original ids
             terms.append(t)
@@ -198,7 +202,8 @@ class ShardedPartitionedEngine(PartitionedEngine):
             f_ids, f_d = common.finalize_with_tail(m_d, m_i, self.tail_V, qb, n, k)
         if self.certified and impl != "stream":
             with maybe_phase(phases, "batch/certificate"):
-                suspect = certificate(f_d, qb.qV, t, self._rel_mm, self._dn_max, k)
+                suspect = certificate(f_d, qb.qV, t, self._rel_mm, self._dn_max, k,
+                                      self._cert_debug)
         else:
             suspect = torch.zeros(f_d.shape[0], dtype=torch.bool, device=home)
         return f_ids, suspect, f_d

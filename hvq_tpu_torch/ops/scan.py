@@ -5,7 +5,9 @@ plain PyTorch versions of the four scan kernels: :func:`packed_scan_plain`
 for the packed scans K1 (``fused_packed_scan_v3``, axis1 layout), K3
 (``fused_packed_scan``, lane layout, fp32) and K2 (``fused_packed_scan_v2``,
 lane layout, 3-pass bf16 split), and :func:`bin_scan_plain` for the
-unpacked K4 (``fused_bin_scan``). The CUDA kernels and their wrappers live
+unpacked K4 (``fused_bin_scan``). :func:`deferred_bin_scan` is K4's XLA
+sibling ``deferred_bin_scan_xla`` (no kernel on either side): the engines'
+``scan_impl="xla_deferred"``. The CUDA kernels and their wrappers live
 in :mod:`hvq_tpu_torch.ops.kernels`; on a CPU tensor a wrapper runs the
 function here.
 
@@ -161,6 +163,7 @@ def packed_scan_plain(
     ntw: int | None = None,
     layout: str = "axis1",
     precision: str | None = None,
+    masked: bool = True,
 ):
     """Plain PyTorch version of the packed scans K1, K3 and K2.
 
@@ -173,8 +176,11 @@ def packed_scan_plain(
     layout with the default precision is the JAX
     ``deferred_packed_scan_xla(layout="lane")``. ``row0`` (tile-aligned) +
     ``ntw`` scan only that window of tiles and return global positions.
-    Returns (dist (B, W) fp32 [low 7 bits zeroed, +inf = empty], pos
-    (B, W) int32), W = nt · bin_top · db_tile/128.
+    ``masked=False`` drops the predicate and sample mask (the JAX
+    ``deferred_packed_scan_xla(masked=False)``, for batches of type-0
+    queries at sample proportion 1): every row, padding rows included,
+    keeps its distance. Returns (dist (B, W) fp32 [low 7 bits zeroed,
+    +inf = empty], pos (B, W) int32), W = nt · bin_top · db_tile/128.
     """
     n_pad = Vs.shape[0]
     t0, nt = scan_window(n_pad, db_tile, row0, ntw)
@@ -203,12 +209,14 @@ def packed_scan_plain(
         dist = dist + qnorm[:, None]
         # `where`, not clamp: -0.0 would pack to a negative key
         dist = torch.where(dist > 0, dist, 0.0)
-        ok = block_mask(C[rows], T[rows], oid[rows], sn,
-                        active_c, v, active_t, l, r)
-        dist = dist.masked_fill(~ok, float("inf"))
+        if masked:
+            ok = block_mask(C[rows], T[rows], oid[rows], sn,
+                            active_c, v, active_t, l, r)
+            dist = dist.masked_fill(~ok, float("inf"))
+            del ok
         shape = (B, c1 - c0, BIN, bins) if red == 2 else (B, c1 - c0, bins, BIN)
         keys = (dist.view(torch.int32).view(shape) & KEY_MASK) | s_iota
-        del dist, ok
+        del dist
         for rnd in range(bin_top):
             m = keys.amin(dim=red)                   # (B, tiles, bins)
             out[:, c0:c1, rnd, :] = m
@@ -234,12 +242,49 @@ def bin_scan_plain(
     what argmin over an all-+inf bin returns. Returns (scores (B, W) fp32,
     ids (B, W) int32 = ``oid[row]``), round-major in each tile as K1.
     """
+    return _unpacked_bin_scan(Vp, C, T, dn, oid, qV, active_c, v, active_t,
+                              l, r, sn, db_tile, bin_top, "highest",
+                              full_distance=False, payload=oid)
+
+
+def deferred_bin_scan(
+    Vp, C, T, dn, oid, qV, active_c, v, active_t, l, r, sn,
+    db_tile: int = 8192,
+    bin_top: int = 2,
+    precision: str = "highest",
+    payload=None,
+):
+    """The JAX ``deferred_bin_scan_xla``: K4's unpacked per-bin argmin
+    rounds (lane layout) on the FULL squared distance, ``‖q‖² + ‖d‖² −
+    2·q·d`` clamped at 0, as the packed scans compute it, so the
+    level-2 reduce and the certificate read its output like theirs. The
+    sample limit tests ``oid``; ``payload`` (default ``oid``) is what each
+    kept entry reports (a sorted view passes its positions). Columns are
+    tile-major, then round, then bin (``pallas_scan.py:305-312``), which
+    ``last_round_dists`` decodes. Returns (dist (B, W) fp32, +inf = empty,
+    payload (B, W) int32), W = nt · bin_top · db_tile/128.
+    """
+    return _unpacked_bin_scan(Vp, C, T, dn, oid, qV, active_c, v, active_t,
+                              l, r, sn, db_tile, bin_top, precision,
+                              full_distance=True,
+                              payload=oid if payload is None else payload)
+
+
+def _unpacked_bin_scan(Vp, C, T, dn, oid, qV, active_c, v, active_t, l, r, sn,
+                       db_tile: int, bin_top: int, precision: str,
+                       full_distance: bool, payload):
+    """R rounds of argmin/min over each contiguous 128-row bin of each
+    tile (K4 and ``deferred_bin_scan``); ``full_distance`` adds ‖q‖² and
+    clamps at 0."""
     n_pad = Vp.shape[0]
     _, nt = scan_window(n_pad, db_tile, None, None)
     check_bin_top(bin_top)
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r}; one of {PRECISIONS}")
     bins = db_tile // BIN
     B = qV.shape[0]
     qf = qV.float()
+    qnorm = (qf * qf).sum(dim=1)[:, None]
     lane = torch.arange(BIN, device=Vp.device).view(1, 1, 1, BIN)
     out_s = torch.empty((B, nt, bin_top, bins), dtype=torch.float32,
                         device=Vp.device)
@@ -249,11 +294,13 @@ def bin_scan_plain(
     for c0 in range(0, nt, step):
         c1 = min(nt, c0 + step)
         rows = slice(c0 * db_tile, c1 * db_tile)
-        s = dn[rows][None, :] - 2.0 * dot_nt(qf, Vp[rows], "highest")
+        s = dn[rows][None, :] - 2.0 * dot_nt(qf, Vp[rows], precision)
+        if full_distance:
+            s = (s + qnorm).clamp_min_(0.0)
         ok = block_mask(C[rows], T[rows], oid[rows], sn,
                         active_c, v, active_t, l, r)
         s = s.masked_fill(~ok, float("inf")).view(B, c1 - c0, bins, BIN)
-        g = oid[rows].to(torch.int32).view(1, c1 - c0, bins, BIN)
+        g = payload[rows].to(torch.int32).view(1, c1 - c0, bins, BIN)
         g = g.expand(B, -1, -1, -1)
         del ok
         for rnd in range(bin_top):

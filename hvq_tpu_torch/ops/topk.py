@@ -20,19 +20,55 @@ def smallest_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.topk(x, k, dim=1, largest=False, sorted=True)
 
 
+TOPK_STRATEGIES = ("topk", "sort", "binned")
+
+
 def merge_topk(
     carry_scores: torch.Tensor,  # (B, k') +inf = empty
     carry_ids: torch.Tensor,     # (B, k') int32
     tile_scores: torch.Tensor,   # (B, Dt)
     tile_ids: torch.Tensor,      # (B, Dt) int32
     kprime: int,
+    strategy: str = "topk",
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One streaming-scan step: best k' of carry ∪ tile per query row
-    (the JAX package's ``strategy="topk"``)."""
+    """One streaming-scan step: best k' of carry ∪ tile per query row.
+
+    ``strategy`` (``hvq_tpu.ops.topk.merge_topk``): ``"topk"`` one top-k
+    over the concatenation; ``"sort"`` a full stable sort, first k'
+    (``jnp.argsort`` is stable too); ``"binned"`` first keeps only the
+    best entry of each 128-column group of the tile
+    (:func:`bin_reduce_min`), then the top-k: it loses a neighbour when
+    two of the true top-k' share a group, so it is approximate.
+    """
+    if strategy == "binned":
+        tile_scores, tile_ids = bin_reduce_min(tile_scores, tile_ids)
+    elif strategy not in TOPK_STRATEGIES:
+        raise ValueError(f"unknown topk strategy {strategy!r}; one of {TOPK_STRATEGIES}")
     scores = torch.cat([carry_scores, tile_scores], dim=1)
     ids = torch.cat([carry_ids, tile_ids], dim=1)
-    top, idx = smallest_k(scores, kprime)
+    if strategy == "sort":
+        top, idx = torch.sort(scores, dim=1, stable=True)
+        top, idx = top[:, :kprime], idx[:, :kprime]
+    else:
+        top, idx = smallest_k(scores, kprime)
     return top, torch.gather(ids, 1, idx)
+
+
+def bin_reduce_min(
+    scores: torch.Tensor,  # (B, Dt), Dt % bin_size == 0
+    ids: torch.Tensor,     # (B, Dt)
+    bin_size: int = BIN,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The best (score, id) of every ``bin_size`` consecutive columns:
+    (B, Dt / bin_size) each, ties to the lowest column (``jnp.argmin``'s
+    first occurrence)."""
+    B, Dt = scores.shape
+    if Dt % bin_size:
+        raise ValueError(f"tile width {Dt} not divisible by bin {bin_size}")
+    s = scores.reshape(B, Dt // bin_size, bin_size)
+    arg = s.argmin(dim=2, keepdim=True)
+    return (s.gather(2, arg)[..., 0],
+            ids.reshape(B, Dt // bin_size, bin_size).gather(2, arg)[..., 0])
 
 
 def final_topk(scores: torch.Tensor, ids: torch.Tensor, k: int):

@@ -8,8 +8,9 @@
 * ``device_memory_stats()``: ``torch.cuda.memory_stats`` of a card, the
   analogue of the reference's optional MEM_TRACK counter (util.h:74-97).
 
-Host hardware counters (the JAX package's ``hvq_tpu.native.PerfCounters``)
-are not ported yet.
+Host hardware counters (cycles, instructions, cache and branch misses, the
+task clock) come from ``hvq_tpu_torch.native.PerfCounters``, the port's
+``perf_event_open`` wrapper; the CLI's ``run`` brackets the search in them.
 """
 
 from __future__ import annotations

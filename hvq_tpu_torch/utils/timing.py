@@ -1,8 +1,18 @@
 """Phase timers: the counterpart of ``hvq_tpu.utils.timing``.
 
+The reference instruments with two tiers: rdtsc phase timers
+(util.h:16-29) and ``perf_event_open`` hardware counters around the whole
+query loop (perfevent.hpp:44-320). In the port they are:
+
+* wall-clock phase timers (this module);
+* ``torch.profiler`` traces for a kernel-level breakdown
+  (``utils/profiling.py``);
+* host hardware counters, ``hvq_tpu_torch.native.PerfCounters``, the same
+  counter set as the reference.
+
 PyTorch returns before a CUDA device finishes, so an unfenced host clock
 measures the enqueue. A :class:`PhaseTimer` built for a CUDA device
-synchronises it at the end of every phase; the fence perturbs the
+synchronises it at both ends of every phase; the fence perturbs the
 pipelining it measures, so pass a timer only when a breakdown is wanted.
 """
 

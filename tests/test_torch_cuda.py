@@ -839,3 +839,66 @@ def test_four_virtual_shards_of_one_card_equal_the_cpu_mesh(cuda, name, kw):
     assert bodies["wgmma"] >= 4 * -(-qs.m // kw["query_batch"])
     n_pad = eng.n_pad if name == "sharded" else eng.index.cat_view.n_pad
     assert held < 1.5 * n_pad * 128 * 4     # one database, not four
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plane", ["fp32", "bf16"])
+@pytest.mark.parametrize("gate", [False, True])
+def test_repair_on_k1_output_equals_the_repair_on_cpu(cuda, plane, gate):
+    """The in-program bin repair (``common.bin_repair_candidates``) on K1's
+    output on the card against the same repair on CPU copies of the same
+    tensors: equal appended scores, positions and ``remaining_min``."""
+    from hvq_tpu_torch.models import common
+    from hvq_tpu_torch.ops.topk import smallest_k
+
+    args = _inputs(cuda, plane, n_pad=65536, B=64)
+    Vs, C, T, dn, oid, qV, ac, v, at, l, r = args
+    out_s, out_i = kernels.packed_scan_v3(*args, 50000, db_tile=16384, bin_top=2)
+    scores, idx = smallest_k(out_s, 128)
+    cand = torch.gather(out_i, 1, idx)
+    qb = common.QueryBatch(qV, ac, v, at, l, r)
+    thr = (common.repair_thr_pre(scores, 100, qV, float(dn.max()), REL_MM, 2.0 ** -13,
+                                 1e-6) if gate else None)
+    got = common.bin_repair_candidates(out_s, scores, cand, 4, 2, 128, 16384, "axis1",
+                                       C, T, oid, qb, 50000, 2, thr_pre=thr)
+    cpu = lambda t: None if t is None else t.cpu()
+    want = common.bin_repair_candidates(
+        cpu(out_s), cpu(scores), cpu(cand), 4, 2, 128, 16384, "axis1", cpu(C), cpu(T),
+        cpu(oid), common.QueryBatch(*(cpu(f) for f in qb)), 50000, 2, thr_pre=cpu(thr))
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert (got[0][:, 128:] == 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["batched", "partitioned", "paged"])
+def test_repair_on_the_card_repairs_a_planted_bin(cuda, name, monkeypatch):
+    """One bin of K1's axis1 layout holding three near-copies of query 0
+    at R = 2: the engines on the card with ``repair_bins=2`` repair it
+    in-program (no ladder, no flagged window) and agree with the oracle."""
+    from hvq_tpu_torch import get_engine
+    from hvq_tpu_torch.index.partition import PartitionedIndex
+
+    monkeypatch.setenv("HVQ_CERT_TERMS", "1")
+    ds = generate_dataset(200000, seed=20, categories=30)
+    qs = generate_queries(64, seed=21, categories=30)
+    qs.qtype[:] = 0
+    bins = 16384 // 128
+    rows = 3 + bins * np.arange(3)
+    if name == "partitioned":
+        rows = PartitionedIndex.build(ds, db_tile=16384, device="cpu").cat_view.oid.numpy()[rows]
+    ds.V[rows] = qs.V[0] + np.random.default_rng(5).normal(0, 1e-4, (3, 100)).astype(np.float32)
+    kw = dict(device=cuda, query_batch=64, bin_top=2, repair_bins=2)
+    if name == "paged":
+        kw["window_rows"] = 65536
+    kernels.reset_launches()
+    eng = get_engine(name)(ds, **kw)
+    ids, dists = eng.search(qs, k=10)
+    assert kernels.launches["packed_scan_v3"] >= 1
+    oids, odists = search_oracle(ds, qs, k=10)
+    assert recall_at_k(ids, oids, dists, odists) == 1.0
+    assert all(len(set(row)) == 10 for row in ids.tolist())
+    if name == "paged":
+        assert eng.last_reruns["per_window"][0] == 0
+    else:
+        assert eng._last_cert_terms[0] == 0 and eng.last_ladder["suspects"] == 0

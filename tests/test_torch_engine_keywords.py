@@ -3,9 +3,13 @@
 Each port engine's parameters cover the JAX class's (plus ``device``);
 ``kprime`` and ``precision`` are implemented on the batched engine and
 held against the JAX ``BatchedEngine`` with the same keywords on the same
-numpy data, under the 0.002 recomputed-distance contract; every keyword
-accepted but not ported raises ``NotImplementedError`` on a non-default
-value; the TPU-relay keywords are accepted and change nothing.
+numpy data, under the 0.002 recomputed-distance contract; ``dtype``,
+``topk_strategy``, ``repair_bins`` and ``repair_gate`` work at a
+non-default value on both engines, each held against the JAX engine with
+the same keywords (bf16 storage at its own tolerance: recall with a 50.0
+distance tolerance ≥ 0.95 and a relative distance error < 0.05, as
+``tests/test_engines.py::test_bf16_fast_mode_recall``); the TPU-relay
+keywords are accepted and change nothing.
 """
 
 import inspect
@@ -117,9 +121,41 @@ def test_k3_at_one_pass_raises_and_names_the_combination(ds_qs):
 @pytest.mark.parametrize("kw", [dict(dtype="bfloat16"), dict(topk_strategy="binned"),
                                 dict(repair_bins=2), dict(repair_gate=True)])
 def test_unported_keywords_raise_on_a_non_default_value(ds_qs, name, kw):
-    ds, _ = ds_qs
-    with pytest.raises(NotImplementedError):
-        _PAIRS[name][0](ds, device="cpu", **kw)
+    """Once unported, now each keyword at a non-default value against the
+    JAX engine with the same keywords (``"bfloat16"`` is ``jnp.bfloat16``
+    there)."""
+    import jax.numpy as jnp
+
+    ds, qs = ds_qs
+    port, jax_cls = _PAIRS[name]
+    jkw = dict(kw, dtype=jnp.bfloat16) if "dtype" in kw else dict(kw)
+    base = dict(query_batch=8)
+    if name == "batched":
+        base.update(db_tile=16384)
+    # the strategy is the streaming scan's: the batched pair streams (the
+    # partitioned one streams only on its ladder's last rung)
+    binned = "topk_strategy" in kw and name == "batched"
+    if binned:
+        base.update(scan_impl="xla")
+    eng = port(ds, device="cpu", **base, **kw)
+    jeng = jax_cls(ds, **base, **jkw)
+    ids, dists = eng.search(qs)
+    jids, jdists = jeng.search(qs)
+    oids, odists = search_oracle(ds, qs)
+    if "dtype" in kw:
+        assert not eng.certified and not jeng.certified
+        true_d = ((ds.V[ids.astype(np.int64)] - qs.V[:, None, :]) ** 2).sum(-1)
+        for i, d in ((ids, dists), (jids, jdists)):
+            assert recall_at_k(i, oids, d, odists, tolerance=50.0) >= 0.95
+        assert (np.abs(dists - true_d) / np.maximum(true_d, 1.0)).max() < 0.05
+    elif binned:
+        # approximate: the same groups of 128 columns lose the same rows
+        assert_results_match(ds, qs, ids, dists, jids, jdists)
+        assert recall_at_k(ids, jids, dists, jdists) == 1.0
+    else:
+        assert_results_match(ds, qs, ids, dists, oids, odists)
+        assert_results_match(ds, qs, ids, dists, jids, jdists)
+        assert recall_at_k(ids, oids, dists, odists) == 1.0
 
 
 @pytest.mark.parametrize("name", sorted(_PAIRS))

@@ -160,12 +160,13 @@ def test_scan_impl_takes_the_jax_names_and_v3_forces_axis1():
     ds = generate_dataset(3000, seed=40, categories=10)
     for jax_name, port in (("pallas", "v1"), ("pallas_v2", "v2"),
                            ("pallas_v3", "v3"), ("xla_packed", "packed"),
+                           ("xla_deferred", "deferred"),
                            ("xla", "stream"), ("auto", "v3")):
         eng = BatchedEngine(ds, query_batch=8, scan_impl=jax_name,
                             scan_layout="lane", device="cpu")
         assert eng.scan_impl == port
         assert eng.scan_layout == ("axis1" if port == "v3" else "lane")
-        assert eng.db.db_tile == (8192 if port in ("v1", "v2") else 16384)
-    for bad in dict(scan_impl="xla_deferred"), dict(scan_layout="rows"):
+        assert eng.db.db_tile == (8192 if port in ("v1", "v2", "deferred") else 16384)
+    for bad in dict(scan_impl="xla_fused"), dict(scan_layout="rows"):
         with pytest.raises(ValueError):
             BatchedEngine(ds, **bad, device="cpu")

@@ -210,8 +210,9 @@ def test_paged_window_derived_from_the_cards_free_memory(monkeypatch):
 
 def test_paged_registry_and_unported_options(small_ds):
     assert get_engine("paged") is PagedEngine
-    with pytest.raises(NotImplementedError, match="repair_bins"):
-        PagedEngine(small_ds, device="cpu", repair_bins=2, **_BASE)
+    # repair_bins, once unported, now repairs each window's scan
+    eng = PagedEngine(small_ds, device="cpu", repair_bins=2, **_BASE)
+    assert eng.repair_bins == 2 and eng.scan_impl == "packed"
     with pytest.raises(ValueError, match="scan_impl"):
         PagedEngine(small_ds, device="cpu", scan_impl="pallas", **_BASE)
     eng = PagedEngine(small_ds, device="cpu", scan_impl="xla", dispatch_group=4, **_BASE)

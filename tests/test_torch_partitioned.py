@@ -548,16 +548,16 @@ def test_forced_ladder_escalates_and_holds_the_sample_limit(monkeypatch):
 
 
 def test_unported_options_raise(monkeypatch):
+    """The options once unported now build; an unknown scan raises."""
     ds = generate_dataset(600, seed=5, categories=4)
-    with pytest.raises(NotImplementedError):
-        PartitionedEngine(ds, repair_bins=1, device="cpu")
-    with pytest.raises(NotImplementedError):
-        PartitionedEngine(ds, dtype=torch.bfloat16, device="cpu")
+    assert PartitionedEngine(ds, repair_bins=1, device="cpu").repair_bins == 1
+    bf = PartitionedEngine(ds, dtype=torch.bfloat16, device="cpu")
+    assert not bf.certified and bf.index.cat_view.Vp.dtype == torch.bfloat16
     with pytest.raises(ValueError):
         PartitionedEngine(ds, scan_impl="pallas", device="cpu")
     monkeypatch.setenv("HVQ_CERT_TERMS", "1")
-    with pytest.raises(NotImplementedError):
-        PartitionedEngine(ds, device="cpu")
+    eng = PartitionedEngine(ds, device="cpu")
+    assert eng._cert_debug and eng._last_cert_terms is None
 
 
 @pytest.mark.parametrize("scan_impl,scan_store", [("auto", "fp32"),

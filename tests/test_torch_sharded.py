@@ -212,12 +212,13 @@ def test_keywords_cover_jax_and_bad_values_raise(small_ds):
     mesh = make_mesh(devices=CPU8)
     with pytest.raises(ValueError):
         ShardedEngine(small_ds, mesh=mesh, scan_impl="pallas_v2")
-    with pytest.raises(NotImplementedError):
-        ShardedEngine(small_ds, mesh=mesh, scan_impl="xla_deferred")
-    with pytest.raises(NotImplementedError):
-        ShardedEngine(small_ds, mesh=mesh, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError):
-        ShardedEngine(small_ds, mesh=mesh, repair_bins=2)
+    # the keywords once unported now build their options
+    assert ShardedEngine(small_ds, mesh=mesh, scan_impl="xla_deferred").scan_impl == "deferred"
+    bf = ShardedEngine(small_ds, mesh=mesh, dtype=torch.bfloat16)
+    assert not bf.certified and bf.slabs[0][0].Vp.dtype == torch.bfloat16
+    assert ShardedEngine(small_ds, mesh=mesh, repair_bins=2).repair_bins == 2
+    with pytest.raises(ValueError):
+        ShardedEngine(small_ds, mesh=mesh, topk_strategy="approx")
     with pytest.raises(ValueError, match="q axis"):
         ShardedEngine(small_ds, mesh=make_mesh(2, 4, devices=CPU8), query_batch=33)
     with pytest.raises(ValueError, match="disagrees"):
