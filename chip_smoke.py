@@ -135,7 +135,24 @@ Phases, in order; any failure exits non-zero with a traceback:
    paged (``--resilient``, 16384-row windows), ivf (from its checkpoint),
    sharded and partitioned_sharded (the default mesh: every visible card)
    and batched under ``--profile`` (a Chrome trace), then ``compare`` of
-   the exact engines' ``.dist`` files ("same" or "similar").
+   the exact engines' ``.dist`` files ("same" or "similar");
+12. the harness around the engines: (a) ``hvq_tpu_torch.entry.
+   dryrun_multichip(4)`` on the card with its capacity leg (D=10⁶:
+   ``partitioned_sharded`` at ≥ 16 tiles a shard and the paged engine
+   over 4 windows, recall 1.0 both); the full-diff partners' card bytes
+   a row at D=10⁶ (batched, partitioned), which must not exceed the
+   runner's ``PARTNER_BYTES_PER_ROW``; batched's ids-only fetch against
+   its full fetch in turns; (b) the benchmark runner's measuring function
+   (``tools.bench.run``) at its default shape, ``partitioned`` over phase
+   6's 10⁷ rows (bf16 plane) with phase 7's 4·10⁴ queries: 3 timed runs,
+   recall 1.0 and ``.dist`` "same" on 64 oracle queries, and a full diff
+   against ``batched`` over every query; (c) ``python -m
+   hvq_tpu_torch.tools.bench`` as a subprocess (``batched``, D=10⁶,
+   Q=10⁴): exit 0 and its last line, the partner ``partitioned``; (d)
+   ``tools.serving_latency`` at D=10⁶, 50 calls at B=1 and B=16 for
+   batched and partitioned.
+
+Each phase's seconds are printed as it ends.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after; the launches of K1, K3, K2 and K4 are also counted per body,
@@ -1845,17 +1862,162 @@ def path_harness() -> dict:
     return dict(run_s=out, launches=launches)
 
 
+BENCH_ROWS, BENCH_QUERIES = 1_000_000, 10_000       # phase 12c's runner
+LATENCY_ROWS, LATENCY_CALLS = 1_000_000, 50          # phase 12d's
+
+
+def counted() -> dict:
+    """The launch counts since the last reset, in a path result's keys."""
+    return dict(launches=dict(kernels.launches), bodies=dict(kernels.k1_body_launches),
+                lane_bodies={k: dict(v) for k, v in kernels.lane_body_launches.items()})
+
+
+def runner_counts(rec: dict) -> dict:
+    """A runner line's launches (its median timed search) in a path
+    result's keys."""
+    by_body = rec["launches_by_body"]
+    return dict(launches=rec["launches"], bodies=by_body["packed_scan_v3"],
+                lane_bodies={k: by_body[k] for k in kernels.lane_body_launches})
+
+
+def assert_k1_only(tag: str, counts: dict, wgmma: int | None = None) -> None:
+    """The path launched K1 and no lane kernel; every K1 launch on its
+    tensor-core body, or (``wgmma`` given) at least that many of them."""
+    k1 = counts["launches"]["packed_scan_v3"]
+    bodies = counts["bodies"]
+    assert k1 >= 1 and bodies["wgmma"] + bodies["simt"] == k1, (tag, counts)
+    assert bodies["wgmma"] >= (k1 if wgmma is None else wgmma), (tag, counts)
+    assert all(v == 0 for k, v in counts["launches"].items() if k != "packed_scan_v3"), (
+        tag, counts)
+
+
+def path_runner(ds, qs6) -> dict:
+    """Phase 12: the harness around the engines. (a) the mesh dry run on
+    4 virtual shards of the card with its capacity leg (D=10⁶: ≥ 16 tiles
+    a shard, 4 paged windows, recall 1.0 both); the full-diff partners'
+    card bytes a row at D=10⁶ against ``bench.PARTNER_BYTES_PER_ROW``;
+    (b) the benchmark runner's measuring function in process at its
+    default shape, ``partitioned`` over phase 6's 10⁷ rows (bf16 plane)
+    with phase 7's 4·10⁴ queries: 3 timed runs, the 64-query oracle check
+    and a full diff against ``batched`` over every query; (c) ``python -m
+    hvq_tpu_torch.tools.bench`` as a subprocess (``batched``, D=10⁶,
+    Q=10⁴, no dataset cache): exit 0 and its last line; (d) the serving
+    latency tool at D=10⁶, 50 calls a batch size."""
+    from hvq_tpu_torch.entry import dryrun_multichip
+    from hvq_tpu_torch.tools import bench, serving_latency
+
+    out = {}
+    tag = "runner"
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    dry = dryrun_multichip(MESH_SHARDS, device=DEV.type)
+    out["dryrun"] = dict(counted(), seconds=time.perf_counter() - t0, **dry)
+    cap = dry["capacity"]
+    log(f"[{tag}] 12a dryrun_multichip({MESH_SHARDS}) with the capacity leg: "
+        f"{json.dumps(out['dryrun'])}")
+    assert cap["tiles_per_shard"] >= 16 and cap["windows"] == 4, cap
+    # the small legs' 128-row tiles pick R > 8 (the CUDA-core body); the
+    # capacity leg's 8192-row tiles one launch a shard and a window on
+    # the tensor-core body
+    assert_k1_only("12a", out["dryrun"], wgmma=MESH_SHARDS + cap["windows"])
+
+    # the partners' footprint, on the runner's own D=10⁶ data (12c's)
+    ds1 = generate_dataset(BENCH_ROWS, seed=0, categories=1000)
+    qs1 = generate_queries(BENCH_QUERIES, seed=1, categories=1000, centers_seed=0)
+    foot = {p: bench.partner_footprint(p, ds1, qs1, DEV) for p in ("batched", "partitioned")}
+    log(f"[{tag}] full-diff partners' card bytes a row at D={BENCH_ROWS:.0e}, "
+        f"{BENCH_QUERIES} queries: {foot}; the runner's table "
+        f"{bench.PARTNER_BYTES_PER_ROW}")
+    out["partner_bytes_per_row"] = foot
+    assert all(bench.PARTNER_BYTES_PER_ROW[p] >= b for p, b in foot.items()), foot
+    # the batched engine's ids-only fetch against the full fetch, in turns
+    eng = get_engine("batched")(ds1, device=DEV)
+    eng.search(qs1, return_dists=False)
+    qps = {"full": [], "ids_only": []}
+    for kind in ("full", "ids_only", "ids_only", "full", "full", "ids_only"):
+        t0 = time.perf_counter()
+        ids, dists = eng.search(qs1, return_dists=kind == "full")
+        qps[kind].append(qs1.m / (time.perf_counter() - t0))
+        if kind == "full":
+            ids_full = ids
+        else:
+            assert dists is None
+    assert np.array_equal(ids, ids_full)
+    out["fetch_qps_d1e6"] = qps
+    log(f"[{tag}] batched D={BENCH_ROWS:.0e} fp32, {qs1.m} queries, QPS by fetch: "
+        f"{json.dumps(qps)}")
+    del eng, ds1, qs1
+    torch.cuda.empty_cache()
+
+    qs = workload.partitioned_queries(qs6)
+    lines = []
+    t0 = time.perf_counter()
+    rec = bench.run(ds, qs, "partitioned", DEV, emit=lines.append)
+    log(f"[{tag}] 12b the runner in process ({time.perf_counter() - t0:.1f} s), "
+        f"{len(lines)} lines; the last: {json.dumps(rec)}")
+    out["bench_d1e7"] = dict(runner_counts(rec), qps=rec["value"], record=rec)
+    assert rec["timed_runs"] == 3 and len(rec["run_qps"]) == 3, rec
+    assert rec["checked_queries"] == 64 and rec["recall_at_100"] == 1.0, rec
+    assert rec["dist_check"] == "same", rec
+    assert rec["full_diff"] in ("same", "similar"), rec
+    assert rec["full_diff_queries"] == qs.m == 40_000, rec
+    assert rec["full_diff_engines"] == ["partitioned", "batched_fp32"], rec
+    assert rec["scan_impl"] == "v3" and rec["backend"] == "torch", rec
+    assert_k1_only("12b", out["bench_d1e7"])
+    del qs
+
+    env = dict(os.environ, HVQ_BENCH_N=str(BENCH_ROWS), HVQ_BENCH_Q=str(BENCH_QUERIES),
+               HVQ_BENCH_ENGINE="batched", HVQ_BENCH_CACHE="")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "hvq_tpu_torch.tools.bench"],
+                          cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                          capture_output=True, text=True, timeout=600)
+    sub_s = time.perf_counter() - t0
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    last = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"[{tag}] 12c python -m hvq_tpu_torch.tools.bench (batched, D={BENCH_ROWS:.0e}, "
+        f"Q={BENCH_QUERIES}; {sub_s:.1f} s, rc 0): {json.dumps(last)}")
+    out["bench_subprocess"] = dict(runner_counts(last), qps=last["value"], record=last,
+                                   seconds=sub_s)
+    assert last["recall_at_100"] == 1.0 and last["dist_check"] == "same", last
+    assert last["full_diff"] in ("same", "similar"), last
+    assert last["full_diff_engines"] == ["batched", "partitioned_fp32"], last
+    assert_k1_only("12c", out["bench_subprocess"])
+
+    saved = {k: os.environ.get(k) for k in ("SL_N", "SL_CALLS")}
+    os.environ.update(SL_N=str(LATENCY_ROWS), SL_CALLS=str(LATENCY_CALLS))
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    try:
+        recs = serving_latency.main(DEV.type)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    out["latency"] = dict(counted(), records=recs, seconds=time.perf_counter() - t0)
+    assert [(r["engine"], r["batch"]) for r in recs] == [
+        ("batched", 1), ("batched", 16), ("partitioned", 1), ("partitioned", 16)], recs
+    assert all(r["calls"] == LATENCY_CALLS for r in recs), recs
+    assert_k1_only("12d", out["latency"])
+    return out
+
+
 def kernel_entries(r6: dict, r7: dict, r8: dict, worst: dict, cert: dict,
                    deterministic: dict, library: str, paged: dict | None = None,
-                   mesh: dict | None = None, options: dict | None = None) -> list:
+                   mesh: dict | None = None, options: dict | None = None,
+                   runner: dict | None = None) -> list:
     """The kernels line's entries of K1–K4 from the main paths' results
-    (phases 4–7, phase 8's paged engine, phases 9a–9c's mesh engines and
-    phase 10's repaired engines and ``xla_deferred`` ladder when given:
-    ``mesh`` = {"sharded", "sharded_k3", "partitioned_sharded"},
-    ``options`` = {engine name: its phase-10 result}), phase 3's worst
+    (phases 4–7, phase 8's paged engine, phases 9a–9c's mesh engines,
+    phase 10's repaired engines and ``xla_deferred`` ladder and phase
+    12's harness when given: ``mesh`` = {"sharded", "sharded_k3",
+    "partitioned_sharded"}, ``options`` = {engine name: its phase-10
+    result}, ``runner`` = {12's step: its counts}), phase 3's worst
     errors, phase 3b's certificate ratios and phase 3c's deterministic
     cases."""
     paths = [r6["v3"], r6["v1"], r6["v2"], r7, r8] + ([paged] if paged else [])
+    paths += list((runner or {}).values())
     if mesh:
         paths += [mesh["sharded"], mesh["sharded"]["one_shard"], mesh["sharded_k3"],
                   mesh["partitioned_sharded"]]
@@ -1943,29 +2105,56 @@ def kernel_entries(r6: dict, r7: dict, r8: dict, worst: dict, cert: dict,
                 e.update(launches_phase10={k: r["launches"][name]
                                            for k, r in options.items()},
                          qps_phase10={k: r["qps"] for k, r in options.items()})
+            if runner:
+                # phase 12: the dry run, the runner's median timed search
+                # (in process and as a subprocess) and the latency tool
+                e.update(launches_phase12={k: r["launches"][name]
+                                           for k, r in runner.items()})
         entries.append(e)
     return entries
 
 
+class Laps:
+    """Each phase's seconds, logged as it ends."""
+
+    def __init__(self):
+        self.t0 = self.t = time.perf_counter()
+        self.seconds = {}
+
+    def __call__(self, phase: str) -> None:
+        now = time.perf_counter()
+        self.seconds[phase] = round(now - self.t, 1)
+        log(f"phase {phase}: {now - self.t:.1f} s (total {now - self.t0:.1f} s)")
+        self.t = now
+
+
 def main() -> int:
     card = probe()
+    lap = Laps()
     build()
+    lap("2")
     worst = {"packed_scan_v3": k1_vs_plain()}
     worst.update(lane_vs_plain())
     log(f"kernel vs plain: all cases ok, max_abs_err {worst}")
     log(f"bounds of the TPU probe scripts: {json.dumps(probe_bounds())}")
+    lap("3")
     cert = {"packed_scan_v3": certificate_error()}
     for name in ("packed_scan", "packed_scan_v2"):
         cert[name] = certificate_error(name, 8192, 4, planes=("fp32",))
     cert["bin_scan"] = certificate_error("bin_scan", 2048, 2, planes=("fp32",))
     log(f"certificate error, share of the slack used (≤ 0.5): {cert}")
     deterministic = {name: determinism(name) for name in kernels.launches}
+    lap("3b-3c")
     log("TPU probe kernels (phase 3d):")
     probes = probe_phase(os.path.basename(probe_kernels.build_info["path"]))
+    lap("3d")
     r6, reuse_d1e6, lane_db = paths_d1e6()
     torch.cuda.empty_cache()
+    lap("4-5")
     r7, reused = path_d1e7()
+    lap("6")
     r8 = path_partitioned(reused)
+    lap("7")
     partitioned_ids, index7 = r8.pop("ids"), r8.pop("index")
     ds, qs, eng6, ref, batched_ids = reused
     db6 = eng6.db           # phase 10a searches phase 6's database again
@@ -1973,13 +2162,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     r9 = path_paged(ds, qs, ref, batched_ids)
     paged_ids = r9.pop("ids")
+    lap("8")
     r10 = path_ivf()
+    lap("9 ivf")
     torch.cuda.reset_peak_memory_stats(DEV)
     mesh = {"sharded": path_sharded(ds, qs, ref, batched_ids)}
     sharded_ids = mesh["sharded"].pop("ids")
     mesh["sharded_k3"] = path_sharded_k3(*reuse_d1e6)
     mesh["partitioned_sharded"] = path_partitioned_sharded(ds, qs, ref, partitioned_ids)
     psharded_ids = mesh["partitioned_sharded"].pop("ids")
+    lap("9a-9c")
     log("phase 10a: repair_bins=2 on the card")
     r10a = path_repair(
         ds, qs, ref, db6, index7,
@@ -1993,7 +2185,9 @@ def main() -> int:
                        mesh["partitioned_sharded"]["route"]["ladder"],
                        flagged=mesh["partitioned_sharded"]["route"]["suspects"],
                        dense_straddling=mesh["partitioned_sharded"]["route"]["dense_straddling"])))
-    del ds, qs, ref, batched_ids, partitioned_ids, paged_ids, sharded_ids, psharded_ids
+    lap("10a")
+    # phase 12 reuses the host rows and queries of phases 6-7
+    del ref, batched_ids, partitioned_ids, paged_ids, sharded_ids, psharded_ids
     del db6, index7
     torch.cuda.empty_cache()
     log("phases 10b-10e: xla_deferred, the top-k strategies, bf16 storage, native + CLI")
@@ -2004,7 +2198,9 @@ def main() -> int:
     r10d = path_bf16_storage(*reuse_d1e6)
     del reuse_d1e6
     r10e = path_native_cli()
+    lap("10b-10e")
     r11 = path_harness()
+    lap("11")
     log(f"paged {r9['qps']:.1f} QPS, ivf {r10['qps']:.1f} QPS (recall {r10['recall']}), "
         f"sharded {mesh['sharded']['qps']:.1f} QPS ({MESH_SHARDS} virtual shards; "
         f"1 shard {mesh['sharded']['one_shard']['qps']:.1f}), sharded K3 "
@@ -2015,9 +2211,22 @@ def main() -> int:
                         repair_phase=v["repair_phase"], terms=v["terms"])
                 for k, v in r10a.items()},
         xla_deferred=r10b, strategies=r10c, bf16_storage=r10d, native_cli=r10e)))
+    torch.cuda.empty_cache()
+    log("phase 12: the dry run's capacity leg, the benchmark runner, the latency tool")
+    r12 = path_runner(ds, qs)
+    del ds, qs
+    lap("12")
+    log(f"phase 12 summary: runner {r12['bench_d1e7']['qps']} QPS (partitioned D=1e7), "
+        f"{r12['bench_subprocess']['qps']} QPS (batched D=1e6, subprocess); latency "
+        + json.dumps([{k: r[k] for k in ("engine", "batch", "p50_ms", "p95_ms", "p99_ms",
+                                         "max_ms", "rerun_calls")}
+                      for r in r12["latency"]["records"]]))
+    log(f"phase seconds: {json.dumps(lap.seconds)}")
     library = os.path.basename(kernels.build_info["path"])
+    runner = {k: r12[k] for k in ("dryrun", "bench_d1e7", "bench_subprocess", "latency")}
     entries = kernel_entries(r6, r7, r8, worst, cert, deterministic, library,
-                             paged=r9, mesh=mesh, options=dict(r10a, xla_deferred=r10b)) + probes
+                             paged=r9, mesh=mesh, options=dict(r10a, xla_deferred=r10b),
+                             runner=runner) + probes
     log(card)
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {

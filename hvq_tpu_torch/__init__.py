@@ -28,11 +28,40 @@ Package layout::
                torch.profiler traces
       cli/     ``python -m hvq_tpu_torch.cli run | compare | build-index |
                gen-data | gen-queries``
-      tools/   ``python -m hvq_tpu_torch.tools.profile_partitioned``
-      entry.py the batched search step and a mesh dry run (the
-               counterpart of the repository's ``__graft_entry__.py``)
+      tools/   ``python -m hvq_tpu_torch.tools.bench`` (the benchmark
+               runner's JSON line), ``tools.serving_latency`` (B = 1 / 16
+               latency), ``tools.profile_partitioned`` and the probes'
+               and kernels' measurement tools
+      entry.py the batched search step and a mesh dry run with its
+               capacity leg (the counterpart of the repository's
+               ``__graft_entry__.py``)
+
+The top level re-exports the JAX package's names: the constants, the
+binary formats' readers and writers, ``get_engine``,
+``available_engines`` and ``register_engine``.
 """
 
 __version__ = "0.1.0"
 
-from hvq_tpu_torch.models.registry import available_engines, get_engine  # noqa: E402,F401
+from hvq_tpu_torch.constants import (  # noqa: E402,F401
+    DATA_RECORD_DIM,
+    DIST_TOLERANCE,
+    K_DEFAULT,
+    QUERY_RECORD_DIM,
+    VEC_DIM,
+)
+from hvq_tpu_torch.models.registry import (  # noqa: E402,F401
+    available_engines,
+    get_engine,
+    register_engine,
+)
+from hvq_tpu_torch.utils.formats import (  # noqa: E402,F401
+    Dataset,
+    QuerySet,
+    read_data_bin,
+    read_dist,
+    read_knn,
+    read_query_bin,
+    save_knn,
+    save_knn_dist,
+)

@@ -368,25 +368,28 @@ def slab_scan(eng, slab: Slab, qb: common.QueryBatch, sn: int, kp: int,
     return exact, pos, terms
 
 
-def pack_result(ids, suspect, dists) -> torch.Tensor:
+def pack_result(ids, suspect, dists=None) -> torch.Tensor:
     """(B, 2k+1) int32 device tensor [ids | dists bits | suspect]: one
-    device→host copy per dispatch. The suspect column carries the term
-    bitmask under ``HVQ_CERT_TERMS=1`` (:func:`result_terms`)."""
-    return torch.cat(
-        [ids, dists.view(torch.int32), suspect.to(torch.int32)[:, None]], dim=1
-    )
+    device→host copy per dispatch; (B, k+1) [ids | suspect] when ``dists``
+    is None (the ids-only fetch). The suspect column, always the last,
+    carries the term bitmask under ``HVQ_CERT_TERMS=1``
+    (:func:`result_terms`)."""
+    cols = [ids] if dists is None else [ids, dists.view(torch.int32)]
+    return torch.cat(cols + [suspect.to(torch.int32)[:, None]], dim=1)
 
 
 def unpack_result(host: np.ndarray, k: int):
-    """Host (ids int32, suspect bool, dists fp32) of a :func:`pack_result`."""
-    return host[:, :k], host[:, 2 * k] != 0, host[:, k : 2 * k].view(np.float32)
+    """Host (ids int32, suspect bool, dists fp32 or None) of a
+    :func:`pack_result`."""
+    dists = host[:, k : 2 * k].view(np.float32) if host.shape[1] > k + 1 else None
+    return host[:, :k], host[:, -1] != 0, dists
 
 
 def result_terms(host: np.ndarray, k: int) -> np.ndarray:
     """The suspect column of a :func:`pack_result` as int32: the
     certificate's term bitmask (1 bin, 2 level 2, 4 k′ cut) when the
     engine was built under ``HVQ_CERT_TERMS=1``."""
-    return host[:, 2 * k]
+    return host[:, -1]
 
 
 def _pow2_batch(m: int, cap: int) -> int:
@@ -656,10 +659,15 @@ class BatchedEngine:
         qs: QuerySet,
         k: int = _c.K_DEFAULT,
         sample_proportion: float = 1.0,
+        return_dists: bool = True,
         phases=None,
-    ) -> tuple[np.ndarray, np.ndarray]:
-        """Run the query set; returns (ids (m, k) uint32, dists (m, k) fp32).
+    ) -> tuple[np.ndarray, np.ndarray | None]:
+        """Run the query set; returns (ids (m, k) uint32, dists (m, k) fp32
+        or None with ``return_dists=False``).
 
+        ``return_dists=False`` copies only the id and suspect columns of
+        each batch to the host (the reference's ``vec_query`` is ids-only;
+        ``.dist`` files are recomputed from the ids afterwards).
         ``phases``: optional ``utils.timing.PhaseTimer`` that receives the
         per-stage breakdown (pack, upload, scan, select, finalize,
         certificate, fetch, rerun).
@@ -679,9 +687,12 @@ class BatchedEngine:
         for s in range(0, m_pad, B):
             res = self._search_batch(Q_dev[s : s + B], sn, n, k, phases=phases)
             with maybe_phase(phases, "search/fetch"):
-                host = pack_result(*res).cpu().numpy()
-                ids_out[s : s + B], suspects[s : s + B], dists_out[s : s + B] = (
-                    unpack_result(host, k))
+                # return_dists=False: the dists stay on the device
+                host = pack_result(res[0], res[1],
+                                   res[2] if return_dists else None).cpu().numpy()
+                ids_out[s : s + B], suspects[s : s + B], d = unpack_result(host, k)
+                if d is not None:
+                    dists_out[s : s + B] = d
                 terms[s : s + B] = result_terms(host, k)
             del res
         if self._cert_debug:
@@ -692,7 +703,8 @@ class BatchedEngine:
                 self.last_ladder = self._rerun_suspects(
                     Qpack, suspects, ids_out, dists_out, sn, n, k
                 )
-        return ids_out[: qs.m].astype(np.uint32), dists_out[: qs.m]
+        return (ids_out[: qs.m].astype(np.uint32),
+                dists_out[: qs.m] if return_dists else None)
 
     def _rerun_suspects(self, Qpack, suspects, ids_out, dists_out, sn, n, k):
         """Re-run the queries whose certificate failed (see

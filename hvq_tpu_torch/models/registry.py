@@ -32,12 +32,29 @@ _ENGINES = {
 }
 
 
+# name → class, for engines registered by :func:`register_engine`
+_REGISTERED: dict[str, Callable] = {}
+
+
+def register_engine(name: str):
+    """Class decorator: sets ``cls.name`` and makes ``get_engine(name)``
+    return the class (a registered name shadows a built-in one)."""
+    def deco(cls):
+        cls.name = name
+        _REGISTERED[name] = cls
+        return cls
+
+    return deco
+
+
 def get_engine(name: str) -> Callable:
+    if name in _REGISTERED:
+        return _REGISTERED[name]
     if name not in _ENGINES:
-        raise KeyError(f"unknown engine {name!r}; available: {sorted(_ENGINES)}")
+        raise KeyError(f"unknown engine {name!r}; available: {available_engines()}")
     module, cls = _ENGINES[name]
     return getattr(importlib.import_module(module), cls)
 
 
 def available_engines() -> list[str]:
-    return sorted(_ENGINES)
+    return sorted({*_ENGINES, *_REGISTERED})

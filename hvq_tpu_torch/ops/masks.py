@@ -9,6 +9,7 @@ and masked rows get distance +inf (reference optimized.hpp:84-117).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -40,3 +41,10 @@ def block_mask(C_tile, T_tile, gid_tile, sn, active_c, v, active_t, l, r):
         (T_tile[None, :] >= l[:, None]) & (T_tile[None, :] <= r[:, None])
     )
     return in_range & c_ok & t_ok
+
+
+def predicate_selectivity(mask) -> float:
+    """Fraction of candidates passing (a NumPy array or a tensor): a
+    diagnostic for the index layer's routing."""
+    mask = mask.cpu().numpy() if isinstance(mask, torch.Tensor) else np.asarray(mask)
+    return float(mask.mean()) if mask.size else 0.0

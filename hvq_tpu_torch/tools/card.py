@@ -1,4 +1,4 @@
-"""What chip_smoke and the probe tools share about the card: its data-sheet
+"""What chip_smoke and the tools share about the card: its data-sheet
 peaks, its name and power limit, CUDA-event timing and the bound rule."""
 
 from __future__ import annotations
@@ -29,6 +29,11 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()
     return out[torch.cuda.current_device()] if out else ""
+
+
+def device_line(device: torch.device) -> str:
+    """:func:`card_line` for a CUDA device, else the device's type."""
+    return card_line() if device.type == "cuda" else device.type
 
 
 def event_ms(fn, reps: int) -> float:

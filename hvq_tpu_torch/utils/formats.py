@@ -92,6 +92,12 @@ class QuerySet:
         ).astype(np.float32)
 
 
+def slice_queries(qs: QuerySet, lo: int, hi: int) -> QuerySet:
+    """Queries [lo, hi) of ``qs`` (views of its arrays)."""
+    return QuerySet(qtype=qs.qtype[lo:hi], v=qs.v[lo:hi], l=qs.l[lo:hi],
+                    r=qs.r[lo:hi], V=qs.V[lo:hi])
+
+
 def _read_records(path: str | os.PathLike, record_dim: int) -> np.ndarray:
     """Read a count-prefixed float32 record file into an (N, record_dim) array.
 

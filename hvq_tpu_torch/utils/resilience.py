@@ -28,16 +28,9 @@ import numpy as np
 import torch
 
 from hvq_tpu_torch import constants as _c
-from hvq_tpu_torch.utils.formats import QuerySet
+from hvq_tpu_torch.utils.formats import QuerySet, slice_queries
 
 _TRANSIENT_MARKERS = ("DEADLINE_EXCEEDED", "UNAVAILABLE", "INTERNAL", "ABORTED")
-
-
-def _slice_queries(qs: QuerySet, lo: int, hi: int) -> QuerySet:
-    return QuerySet(
-        qtype=qs.qtype[lo:hi], v=qs.v[lo:hi],
-        l=qs.l[lo:hi], r=qs.r[lo:hi], V=qs.V[lo:hi],
-    )
 
 
 class ResilientEngine:
@@ -66,8 +59,8 @@ class ResilientEngine:
             if not _is_oom(e) or qs.m <= self.min_split:
                 raise
             mid = qs.m // 2
-            ids_a, d_a = self._search_range(_slice_queries(qs, 0, mid), k, sp, kwargs)
-            ids_b, d_b = self._search_range(_slice_queries(qs, mid, qs.m), k, sp, kwargs)
+            ids_a, d_a = self._search_range(slice_queries(qs, 0, mid), k, sp, kwargs)
+            ids_b, d_b = self._search_range(slice_queries(qs, mid, qs.m), k, sp, kwargs)
             return (
                 np.concatenate([ids_a, ids_b]),
                 None if d_a is None else np.concatenate([d_a, d_b]),

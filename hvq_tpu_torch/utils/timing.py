@@ -8,7 +8,9 @@ query loop (perfevent.hpp:44-320). In the port they are:
 * ``torch.profiler`` traces for a kernel-level breakdown
   (``utils/profiling.py``);
 * host hardware counters, ``hvq_tpu_torch.native.PerfCounters``, the same
-  counter set as the reference.
+  counter set as the reference;
+* :func:`track_host_memory`, peak host allocation (the reference's
+  ``MEM_TRACK``), and :func:`time_fn`, a best-of-n fenced wall time.
 
 PyTorch returns before a CUDA device finishes, so an unfenced host clock
 measures the enqueue. A :class:`PhaseTimer` built for a CUDA device
@@ -89,3 +91,51 @@ def maybe_phase(timer: PhaseTimer | None, name: str):
     else:
         with timer.phase(name):
             yield
+
+
+@contextlib.contextmanager
+def track_host_memory():
+    """Peak host allocation inside the block (the reference's ``MEM_TRACK``
+    byte counter, util.h:74-97): tracemalloc's (current, peak) bytes in
+    the yielded dict's ``current_bytes`` and ``peak_bytes`` after the
+    block exits. Card memory: ``utils.profiling.device_memory_stats``."""
+    import tracemalloc
+
+    was_tracing = tracemalloc.is_tracing()
+    if not was_tracing:
+        tracemalloc.start()
+    tracemalloc.reset_peak()
+    out = {}
+    try:
+        yield out
+    finally:
+        out["current_bytes"], out["peak_bytes"] = tracemalloc.get_traced_memory()
+        if not was_tracing:
+            tracemalloc.stop()
+
+
+def _fence(result) -> None:
+    """Wait for the CUDA devices that hold ``result``'s tensors (nested
+    in tuples, lists and dicts); CPU tensors and host values need none."""
+    if isinstance(result, torch.Tensor):
+        if result.is_cuda:
+            torch.cuda.synchronize(result.device)
+    elif isinstance(result, (tuple, list)):
+        for r in result:
+            _fence(r)
+    elif isinstance(result, dict):
+        for r in result.values():
+            _fence(r)
+
+
+def time_fn(fn, *args, warmup: int = 1, iters: int = 3) -> float:
+    """Best-of-``iters`` wall seconds of ``fn(*args)``, each call fenced on
+    the devices of its result's tensors, after ``warmup`` calls."""
+    for _ in range(warmup):
+        _fence(fn(*args))
+    best = float("inf")
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        _fence(fn(*args))
+        best = min(best, time.perf_counter() - t0)
+    return best

@@ -902,3 +902,27 @@ def test_repair_on_the_card_repairs_a_planted_bin(cuda, name, monkeypatch):
         assert eng.last_reruns["per_window"][0] == 0
     else:
         assert eng._last_cert_terms[0] == 0 and eng.last_ladder["suspects"] == 0
+
+
+@pytest.mark.cuda
+def test_batched_ids_only_fetch_matches_the_full_fetch_on_the_card(cuda, monkeypatch):
+    """``return_dists=False`` on the card: K1's ids as the full fetch's
+    and no dists, with a ladder that runs (R = 1 flags queries) and
+    without one, and the certificate's bitmask under HVQ_CERT_TERMS=1."""
+    from hvq_tpu_torch import get_engine
+
+    monkeypatch.setenv("HVQ_CERT_TERMS", "1")
+    ds = generate_dataset(100000, seed=30, categories=30)
+    qs = generate_queries(96, seed=31, categories=30)
+    for bin_top in (None, 1):
+        eng = get_engine("batched")(ds, device=cuda, query_batch=32, bin_top=bin_top)
+        ids, dists = eng.search(qs)
+        full_ladder, full_terms = dict(eng.last_ladder), eng._last_cert_terms.copy()
+        kernels.reset_launches()
+        ids2, none = eng.search(qs, return_dists=False)
+        assert none is None and kernels.launches["packed_scan_v3"] >= 3
+        np.testing.assert_array_equal(ids2, ids)
+        assert eng.last_ladder == full_ladder
+        np.testing.assert_array_equal(eng._last_cert_terms, full_terms)
+        if bin_top == 1:
+            assert full_ladder["suspects"] > 0, full_ladder

@@ -159,9 +159,11 @@ def test_min_terms_matches_pmin():
     assert np.isinf(got[0, 1])
 
 
-def test_entry_step_and_multichip_dry_run_on_cpu_shards():
+def test_entry_step_and_multichip_dry_run_on_cpu_shards(monkeypatch):
     from hvq_tpu_torch import entry
 
+    # the D=10⁶ capacity leg: tests/test_torch_capacity.py, at a CPU size
+    monkeypatch.setenv("HVQ_DRYRUN_CAPACITY", "0")
     fn, args = entry.entry("cpu")
     ids, dists = fn(*args)
     assert tuple(ids.shape) == tuple(dists.shape) == (32, 100)
