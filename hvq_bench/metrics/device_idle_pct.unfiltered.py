@@ -1,0 +1,8 @@
+"""device_idle_pct.unfiltered: 100 minus the device's busy time in the profiled
+calls over the wall of the same calls unprofiled, percent."""
+
+from hvq_bench import readers
+
+
+def read(rec):
+    return readers.device_idle_pct(rec)
