@@ -23,15 +23,15 @@ Package layout::
       ops/     distances, masks, top-k, k-means, the packed scan and its
                kernels
       csrc/    hand-written CUDA kernels (built with nvcc at first use)
-      utils/   binary formats, generators, comparator, phase timers,
-               kernel-vs-plain agreement checks, retry + OOM bisection,
-               torch.profiler traces
+      utils/   binary formats, generators, comparator, phase timers and
+               spans, kernel-vs-plain agreement checks, retry + OOM
+               bisection, torch.profiler traces
       cli/     ``python -m hvq_tpu_torch.cli run | compare | build-index |
                gen-data | gen-queries``
       tools/   ``python -m hvq_tpu_torch.tools.bench`` (the benchmark
                runner's JSON line), ``tools.serving_latency`` (B = 1 / 16
-               latency), ``tools.profile_partitioned`` and the probes'
-               and kernels' measurement tools
+               latency), and the probes' and kernels' measurement
+               tools
       entry.py the batched search step and a mesh dry run with its
                capacity leg (the counterpart of the repository's
                ``__graft_entry__.py``)

@@ -10,7 +10,8 @@ Subcommands:
                     engine's constructor takes, ``--index`` loads a
                     checkpoint, ``--resilient`` wraps the engine in
                     retry + OOM bisection, ``--profile DIR`` writes a
-                    ``torch.profiler`` Chrome trace of the search;
+                    ``torch.profiler`` Chrome trace of the search, with
+                    the program's spans on a track of their own;
                     ``--engine sharded`` and ``partitioned_sharded`` run
                     on the default mesh of ``--device`` (every visible
                     card, or one CPU shard);
@@ -125,7 +126,8 @@ def _cmd_run(args) -> int:
     if args.profile:
         from hvq_tpu_torch.utils.profiling import trace
 
-        profiler = trace(args.profile)
+        # the search's spans join the trace, on their own track
+        profiler = trace(args.profile, device=resolve_device(args.device))
     else:
         profiler = contextlib.nullcontext()
     # host hardware counters bracket the search, as the reference's
@@ -275,7 +277,8 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--save-dist", action=argparse.BooleanOptionalAction,
                    default=True, help="also write <output>.dist")
     r.add_argument("--profile", metavar="DIR",
-                   help="write a torch.profiler Chrome trace of the search into DIR")
+                   help="write a torch.profiler Chrome trace of the search, with the "
+                        "program's spans, into DIR")
     r.set_defaults(fn=_cmd_run)
 
     c = sub.add_parser("compare",

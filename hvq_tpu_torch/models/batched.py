@@ -84,7 +84,8 @@ from hvq_tpu_torch.ops.topk import (
     binned_stream_topk,
     smallest_k,
 )
-from hvq_tpu_torch.utils.timing import maybe_phase
+from hvq_tpu_torch.utils import timing
+from hvq_tpu_torch.utils.timing import maybe_phase, request_span
 
 # Packed query-block layout: [vector (VEC_DIM) | qtype | v | l | r].
 QPACK_W = _c.VEC_DIM + 4
@@ -411,11 +412,17 @@ def rerun_suspect_ladder(
     queries go through the streaming exact path. ``run(sel, impl,
     bin_top)`` executes the query indices ``sel`` as one batch and returns
     host (ids, suspect, dists); results scatter back into ``ids_out`` and
-    ``dists_out`` by index. Returns counts of what each rung did.
+    ``dists_out`` by index. Returns counts of what each rung did, and the
+    suspects' indices as ``rows`` (a batched engine's include its padded
+    rows), which an active tracer (``utils.timing.recording``) also
+    counts as ``ladder_suspects``.
     """
     idx = np.nonzero(suspects)[0]
     stats = dict(suspects=int(idx.size), rung1_bin_top=deeper, rung1_runs=0,
-                 rung2_queries=0, rung2_runs=0)
+                 rung2_queries=0, rung2_runs=0, rows=idx.tolist())
+    tracer = timing.active_tracer
+    if tracer is not None:
+        tracer.count("ladder_suspects", rows=stats["rows"])
 
     def batches(indices):
         for s in range(0, indices.size, B):
@@ -654,6 +661,7 @@ class BatchedEngine:
         return unpack_result(pack_result(ids, suspect, dists).cpu().numpy(),
                              ids.shape[1])
 
+    @request_span
     def search(
         self,
         qs: QuerySet,
@@ -697,7 +705,7 @@ class BatchedEngine:
             del res
         if self._cert_debug:
             self._last_cert_terms = terms[: qs.m]
-        self.last_ladder = dict(suspects=0)
+        self.last_ladder = dict(suspects=0, rows=[])
         if suspects.any():
             with maybe_phase(phases, "search/rerun"):
                 self.last_ladder = self._rerun_suspects(

@@ -42,7 +42,7 @@ from hvq_tpu_torch.ops.distance import mm_nt, require_ieee_fp32, tile_scores
 from hvq_tpu_torch.ops.masks import block_mask
 from hvq_tpu_torch.ops.topk import smallest_k
 from hvq_tpu_torch.utils.formats import Dataset, QuerySet
-from hvq_tpu_torch.utils.timing import maybe_phase
+from hvq_tpu_torch.utils.timing import maybe_phase, request_span
 
 
 class IVFEngine:
@@ -131,6 +131,7 @@ class IVFEngine:
                                oid=idx.oid)
 
     # --- host side ------------------------------------------------------------
+    @request_span
     def search(
         self,
         qs: QuerySet,

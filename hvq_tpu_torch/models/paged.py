@@ -61,7 +61,7 @@ from hvq_tpu_torch.ops.distance import PRECISIONS, require_ieee_fp32, squared_no
 from hvq_tpu_torch.ops.scan import choose_bin_top
 from hvq_tpu_torch.ops.topk import BIN
 from hvq_tpu_torch.utils.formats import Dataset, QuerySet
-from hvq_tpu_torch.utils.timing import maybe_phase
+from hvq_tpu_torch.utils.timing import maybe_phase, request_span
 
 # scan_impl names (the JAX package's and the port's) → the window scan:
 # "v3" = K1, "packed" = the plain packed scan (axis1), "stream" = the
@@ -279,6 +279,7 @@ class PagedEngine:
         return Vw, Vs, padded(self.ds.C), padded(self.ds.T), dnw, oidw
 
     # --- host side ------------------------------------------------------------
+    @request_span
     def search(
         self,
         qs: QuerySet,

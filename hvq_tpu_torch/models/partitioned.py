@@ -85,7 +85,7 @@ from hvq_tpu_torch.ops import kernels
 from hvq_tpu_torch.ops.distance import PRECISIONS, dot_nt, require_ieee_fp32
 from hvq_tpu_torch.ops.scan import LAYOUTS, choose_bin_top, packed_scan_plain
 from hvq_tpu_torch.ops.topk import BIN, smallest_k
-from hvq_tpu_torch.utils.timing import maybe_phase
+from hvq_tpu_torch.utils.timing import maybe_phase, request_span
 
 # scan_impl names (the JAX package's and the port's) → the full-path scan:
 # "v3" = K1 (ops.kernels.packed_scan_v3), "packed" = the plain packed scan
@@ -333,6 +333,7 @@ class PartitionedEngine:
         return f_ids, torch.zeros(NG * G, dtype=torch.bool, device=Q.device), f_d
 
     # --- host side ------------------------------------------------------------
+    @request_span
     def search(
         self,
         qs: QuerySet,
@@ -386,7 +387,7 @@ class PartitionedEngine:
             for vid, q_idx in routed:
                 n_routed[vid] += int(q_idx.size)
                 by_cap, d = self._enqueue_routed(self._get_view(vid), q_idx, start, end,
-                                                 Qpack, sn, n, k, pending)
+                                                 Qpack, sn, n, k, pending, phases)
                 for cap, count in by_cap.items():
                     groups[cap] = groups.get(cap, 0) + count
                 dispatches += d
@@ -409,7 +410,7 @@ class PartitionedEngine:
             del pending
         if self._cert_debug:
             self._last_cert_terms = terms
-        self.last_ladder = dict(suspects=0)
+        self.last_ladder = dict(suspects=0, rows=[])
         if suspects.any():
             with maybe_phase(phases, "search/rerun"):
                 self.last_ladder = self._rerun_suspects(
@@ -528,20 +529,23 @@ class PartitionedEngine:
         return np.ones(start.shape[0], bool)
 
     def _enqueue_routed(self, view, q_idx, start, end, Qpack, sn, n, k,
-                        pending) -> tuple[dict, int]:
+                        pending, phases=None) -> tuple[dict, int]:
         """Pack the routable queries ``q_idx`` of ``view`` into shared
         windows (:meth:`_pack_groups`) and enqueue their dispatches,
         ``routed_groups`` groups each, onto ``pending``; returns ({cap:
-        groups}, dispatches). The mesh subclass homes each group to the
-        shard that owns its window."""
-        by_cap = self._pack_groups(start, end, q_idx)
+        groups}, dispatches). The host packer (the groups, then each
+        dispatch's layout) runs in ``routed/pack`` phases. The mesh
+        subclass homes each group to the shard that owns its window."""
+        with maybe_phase(phases, "routed/pack"):
+            by_cap = self._pack_groups(start, end, q_idx)
         dev = self.device
         dispatches = 0
         for cap in sorted(by_cap):
             glist = by_cap[cap]
             for s in range(0, len(glist), self.routed_groups):
-                g_start, st, en, slots = self._routed_layout(
-                    glist[s : s + self.routed_groups], start, end)
+                with maybe_phase(phases, "routed/pack"):
+                    g_start, st, en, slots = self._routed_layout(
+                        glist[s : s + self.routed_groups], start, end)
                 res = self._search_routed(
                     view, *(upload_async(a, dev) for a in (g_start, st, en)),
                     upload_async(Qpack[slots], dev), sn, n, k, cap)

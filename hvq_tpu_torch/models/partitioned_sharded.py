@@ -225,17 +225,20 @@ class ShardedPartitionedEngine(PartitionedEngine):
         return self._sharded_scan(mv, Q, sn, n, k, None, False, "stream")
 
     def _enqueue_routed(self, mv: MeshView, q_idx, start, end, Qpack, sn, n, k,
-                        pending) -> tuple[dict, int]:
+                        pending, phases=None) -> tuple[dict, int]:
         """Shard-aware routed packing: groups are packed per slab and
         dispatched on the shard that owns their window, in its own
         coordinates, the shards' queues drained round-robin so shards on
-        different devices work at once."""
+        different devices work at once. The host packer runs in
+        ``routed/pack`` phases, as the base class's."""
         ln = self._local_n
         slab_of = start[q_idx] // ln
         by_cap: dict[int, list] = {}
-        for sh in np.unique(slab_of):
-            for cap, glist in self._pack_groups(start, end, q_idx[slab_of == sh]).items():
-                by_cap.setdefault(cap, [[] for _ in range(self.n_d)])[int(sh)].extend(glist)
+        with maybe_phase(phases, "routed/pack"):
+            for sh in np.unique(slab_of):
+                packed = self._pack_groups(start, end, q_idx[slab_of == sh])
+                for cap, glist in packed.items():
+                    by_cap.setdefault(cap, [[] for _ in range(self.n_d)])[int(sh)].extend(glist)
         counts = {cap: sum(map(len, queues)) for cap, queues in by_cap.items()}
         dispatches = 0
         for cap in sorted(by_cap):
@@ -245,13 +248,14 @@ class ShardedPartitionedEngine(PartitionedEngine):
                     if not queue:
                         continue
                     chunk, queues[sh] = queue[: self.routed_groups], queue[self.routed_groups :]
-                    g_start, st, en, slots = self._routed_layout(chunk, start, end)
                     v = mv.shards[sh]
                     off = sh * ln
-                    # the slab's own positions; a pad place keeps its empty span
-                    real = slots.reshape(st.shape) >= 0
-                    st = np.where(real, st - off, 0)
-                    en = np.where(real, en - off, 0)
+                    with maybe_phase(phases, "routed/pack"):
+                        g_start, st, en, slots = self._routed_layout(chunk, start, end)
+                        # the slab's own positions; a pad place keeps its empty span
+                        real = slots.reshape(st.shape) >= 0
+                        st = np.where(real, st - off, 0)
+                        en = np.where(real, en - off, 0)
                     res = self._search_routed(
                         v, *(upload_async(a, v.device) for a in (g_start - off, st, en)),
                         upload_async(Qpack[slots], v.device), sn, n, k, cap)

@@ -52,7 +52,7 @@ from hvq_tpu_torch.ops.topk import BIN
 from hvq_tpu_torch.parallel.collectives import allgather_topk_merge, min_terms
 from hvq_tpu_torch.parallel.mesh import engine_mesh, replicate, shard_rows, split_queries
 from hvq_tpu_torch.utils.formats import Dataset, QuerySet
-from hvq_tpu_torch.utils.timing import maybe_phase
+from hvq_tpu_torch.utils.timing import maybe_phase, request_span
 
 # scan_impl names (the JAX package's and the port's) → the per-shard scan:
 # "v3" = K1 (16384-row tiles, the fp32 plane), "v1" = K3 (lane layout,
@@ -242,6 +242,7 @@ class ShardedEngine:
         return out
 
     # --- host side ------------------------------------------------------------
+    @request_span
     def search(
         self,
         qs: QuerySet,
@@ -283,7 +284,7 @@ class ShardedEngine:
             del pending
         if self._cert_debug:
             self._last_cert_terms = terms[: qs.m]
-        self.last_ladder = dict(suspects=0)
+        self.last_ladder = dict(suspects=0, rows=[])
         if suspects.any():
             with maybe_phase(phases, "search/rerun"):
                 self.last_ladder = self._rerun_suspects(Qpack, suspects, ids_out,

@@ -47,6 +47,9 @@ from hvq_tpu_torch.ops.scan import (
     scan_window,
 )
 from hvq_tpu_torch.ops.topk import BIN
+from hvq_tpu_torch.utils import timing
+from hvq_tpu_torch.utils.timing import current_device as _current_device
+from hvq_tpu_torch.utils.timing import raw_stream as _raw_stream
 
 _PKG = Path(__file__).resolve().parent.parent
 _SOURCES = (
@@ -276,16 +279,6 @@ def _launch(name, device, B, W, qV, active_c, active_t, call):
     return out_d, out_i
 
 
-# The handle of a device's current stream, read without building a
-# torch.cuda.Stream object a launch: torch._C._cuda_getCurrentRawStream
-# (index) returns it as an int, the call PyTorch's own generated kernels
-# launch with (inductor's get_raw_stream). A build without it goes through
-# torch.cuda.current_stream(index).cuda_stream, which builds one.
-_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or (
-    lambda index: torch.cuda.current_stream(index).cuda_stream)
-# The current device's index (torch.cuda.current_device() without its
-# initialisation check: a CUDA tensor exists, so CUDA is initialised).
-_current_device = getattr(torch._C, "_cuda_getDevice", None) or torch.cuda.current_device
 
 
 def run(name: str, device: torch.device, fn, *args) -> None:
@@ -319,13 +312,23 @@ def packed_scan_v3(
     tile-aligned ``row0``. ``Vs`` is the scan plane: (n_pad, 128) fp32 or
     bf16. CPU tensors run :func:`packed_scan_plain`; CUDA tensors launch
     the kernel: its tensor-core body for ``bin_top`` ≤ 8, its CUDA-core body
-    above (counted apart in ``k1_body_launches``).
+    above (counted apart in ``k1_body_launches``). Under an active tracer
+    (``utils.timing.recording``) each call counts a ``k1_launch`` with its
+    B, rows, W and plane bytes, on either device.
     """
     device, n_pad, B = _check_scan_args(
         Vs, (torch.float32, torch.bfloat16), C, T, dn, oid, qV, active_c, v,
         active_t, l, r, bin_top)
     t0, nt = scan_window(n_pad, db_tile, row0, ntw)
     sn = int(sn)
+    W = nt * bin_top * (db_tile // BIN)
+    tracer = timing.active_tracer
+    if tracer is not None:
+        # the launch log: the rows scanned (a window's or the plane's) and
+        # the width of the (B, W) output
+        tracer.count("k1_launch", kernel="packed_scan_v3", B=B,
+                     rows=ntw * db_tile if ntw else n_pad, W=W,
+                     plane_bytes=Vs.element_size())
     if device.type == "cpu":
         return packed_scan_plain(
             Vs, C, T, dn, oid, qV, active_c, v, active_t, l, r, sn,
@@ -336,7 +339,7 @@ def packed_scan_v3(
     lib = build()
     fn = lib.hvq_packed_scan_v3
     out = _launch(
-        "packed_scan_v3", device, B, nt * bin_top * (db_tile // BIN), qV,
+        "packed_scan_v3", device, B, W, qV,
         active_c, active_t,
         lambda qn, ac, at, out_d, out_p, stream: fn(
             Vs.data_ptr(), int(Vs.dtype == torch.bfloat16),

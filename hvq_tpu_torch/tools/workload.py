@@ -1,5 +1,5 @@
-"""The mixed workloads that ``chip_smoke.py`` and ``profile_partitioned``
-run, defined once so the two cannot drift apart.
+"""The mixed workloads that ``chip_smoke.py`` runs, defined once for its
+phases.
 
 Rows and queries come from the port's generators at 1000 categories, so
 the type-1 and type-3 predicates match rows. A batched search runs 10⁴

@@ -131,9 +131,7 @@ def test_wrapper_proxies_the_engine_and_passes_search_keywords():
 def test_profiling_on_the_cpu(tmp_path):
     a = torch.ones(64, 32)
     b = torch.ones(32, 16)
-    assert profiling.cost_analysis(torch.matmul, a, b) == {"flops": 2 * 64 * 32 * 16}
     assert profiling.device_memory_stats("cpu") == {}
-    assert profiling.summarize_bytes(3 * 2 ** 30) == "3.00 GiB"
     with profiling.trace(str(tmp_path / "prof")):
         (a @ b).sum()
     trace = tmp_path / "prof" / "trace.json"
