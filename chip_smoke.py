@@ -27,13 +27,16 @@ Phases, in order; any failure exits non-zero with a traceback:
    ‖q‖², Dt = 2048, R = 2), at unit and adversarial norms (the
    scale-4096 layout of the certificate stress test), against their true
    values in fp64, as a share of the certificate's slack
-   ``rel_mm·(‖q‖² + max‖d‖²)`` (must stay ≤ 0.5);
+   ``rel_mm·(‖q‖² + max‖d‖²)`` (must stay ≤ 0.5); K1's also on the 240 a
+   query that the level-2 select keeps of its stream;
 3c. determinism: K1, K3, K2 and K4 five times on the same inputs: K1 over
    both planes, R of both bodies, 8 main-path tiles and 8-bin tiles, with
    CTAs enough for two an SM; K3, K2 and K4 at B = 1024 over 8 tiles of
    8192 rows at R 1–4 and 8, 8-bin tiles at R 3 and one R = 32 case on
-   the CUDA-core body; the outputs must be bit-identical (every kernel is
-   also rerun and held bit for bit at its main-path shape in phases 4–7);
+   the CUDA-core body; the level-2 select at B = 1024, W = 117,120 over
+   both bodies and both layouts; the outputs must be bit-identical (every
+   kernel is also rerun and held bit for bit at its main-path shape in
+   phases 4–7);
 3d. the TPU probe kernels (the three Pallas kernels of ``experiments/``,
    each driven by its tool, ``hvq_tpu_torch/tools/``): every variant
    against its plain version on small cases (the K1 anatomy's six stages
@@ -162,9 +165,15 @@ partitioned window, the paged window, a mesh shard), K3 and K2 at theirs
 (D=10⁶, Dt=8192, R=4; K3 also at a mesh shard), K4 at its own, each
 beside its bound, its plain version and ``torch.matmul`` of the same bf16
 passes alone (product only: not the same function, and the port never
-calls it). The mesh shards are virtual: all on the one card, so what a
-mesh of several cards pays on their links is not measured here. The last three lines are the card (``nvidia-smi`` name, power
-limit), a JSON object describing each kernel (K1–K4, then each probe
+calls it). The level-2 select runs on each K1 stream of phases 4, 6 and 7
+(D=10⁶ fp32, D=10⁷ bf16, the partitioned window), held bit for bit to its
+plain version (its reduce and the whole select) and timed beside its bound,
+one read of the stream; every path's level-2 launches must equal the
+engines' level-2 selects (``batched.binned_stream_topk``, counted) and run
+the register body. The mesh shards are virtual: all on the one card, so
+what a mesh of several cards pays on their links is not measured here. The
+last three lines are the card (``nvidia-smi`` name, power limit), a JSON
+object describing each kernel (K1–K4, the level-2 select, then each probe
 kernel and variant, whose launches are those of phase 3d's timing runs)
 with its time, bound and launches, and ``{"ok": true, "device": {...}}``.
 """
@@ -194,7 +203,7 @@ from hvq_tpu_torch.tools import workload  # noqa: E402
 from hvq_tpu_torch import get_engine  # noqa: E402
 from hvq_tpu_torch.models import batched  # noqa: E402
 from hvq_tpu_torch.models.device_db import DeviceDB  # noqa: E402
-from hvq_tpu_torch.ops import kernels, probe_kernels  # noqa: E402
+from hvq_tpu_torch.ops import kernels, probe_kernels, topk  # noqa: E402
 from hvq_tpu_torch.ops.distance import require_ieee_fp32  # noqa: E402
 from hvq_tpu_torch.ops.masks import query_predicate_fields  # noqa: E402
 from hvq_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
@@ -404,6 +413,19 @@ def certificate_error(name: str = "packed_scan_v3", Dt: int = 16384, R: int = 3,
                 f"max|Δ|={float((dist - true).abs().max()):.4g} "
                 f"entries={int(fin.sum())}")
             worst.append(ratio)
+            if name == "packed_scan_v3":
+                # the same held on what the level-2 select keeps of K1's stream
+                top, gids, _ = topk.binned_stream_topk(d, p, 240)
+                kept = torch.isfinite(top)
+                ki, krows = torch.nonzero(kept)[:, 0], gids[kept].long()
+                ktrue = ((q64[ki] - V64[krows]) ** 2).sum(1)
+                kqn = (q64 * q64).sum(1)[ki]
+                kratio = certificate_ratio(top[kept].double(), ktrue, kqn, float(dn.max()),
+                                           rel_mm)
+                log(f"  {name} + level2_select certificate error [{plane} scale={scale:g}]: "
+                    f"ratio={kratio:.4g} entries={int(kept.sum())}")
+                worst.append(kratio)
+                del top, gids, kept, ki, krows, ktrue, kqn
             del Vf, Vs, dn, args, d, p, fin, qi, rows, q64, V64, true, dist
         out[plane] = max(worst)
         assert out[plane] <= 0.5, (name, plane, worst)
@@ -416,6 +438,64 @@ def same_bits(a, b) -> bool:
     ids) are bit-identical."""
     return all(torch.equal(x.view(torch.int32), y.view(torch.int32))
                for x, y in zip(a, b))
+
+
+# The engines' level-2 selects since the last reset_counts(), counted where
+# every engine's select_candidates calls them (batched.binned_stream_topk,
+# wrapped by main()): each must be one launch of the level-2 kernel.
+_level2_selects = [0]
+
+
+def counting_selects(select):
+    def binned_stream_topk(*args, **kw):
+        _level2_selects[0] += 1
+        return select(*args, **kw)
+    return binned_stream_topk
+
+
+def reset_counts() -> None:
+    kernels.reset_launches()
+    _level2_selects[0] = 0
+
+
+def want_level2_launches() -> dict:
+    """``kernels.launches`` of a path that launched no scan: one level-2
+    launch per select the engines made since :func:`reset_counts`. Asserts
+    that each ran the register body (every path selects ``rounds`` ≤ 16)."""
+    n = _level2_selects[0]
+    assert kernels.level2_body_launches == {"registers": kernels.launches["level2_select"],
+                                            "shared": 0}, kernels.level2_body_launches
+    return {**dict.fromkeys(kernels.launches, 0), "level2_select": n}
+
+
+def level2_vs_plain(tag: str, out_s, out_i, kp: int, reps: int = 10) -> dict:
+    """The level-2 select on a main path's K1 stream: the kernel's reduce
+    (d2, col, worst2) and its whole select (top, ids, worst2) against the
+    plain version's bit for bit, the kernel rerun twice bit for bit, then
+    the kernel, the plain reduce and both whole selects timed beside the
+    bound: one read of the (B, W) fp32 stream at the HBM rate."""
+    B, W = out_s.shape
+    bins2 = -(-W // 128)
+    rounds = min(max(8, -(-kp // bins2)), 128)
+    got = kernels.level2_select(out_s, rounds)
+    assert same_bits(got, topk.level2_select_plain(out_s, rounds)), f"[{tag}] level2_select"
+    for _ in range(2):
+        assert same_bits(got, kernels.level2_select(out_s, rounds)), f"[{tag}] rerun differs"
+    sel = topk.binned_stream_topk(out_s, out_i, kp)
+    assert same_bits(sel, topk.binned_stream_topk_plain(out_s, out_i, kp)), f"[{tag}] select"
+    finite = int(torch.isfinite(sel[0]).sum())
+    del got, sel
+    ms = event_ms(lambda: kernels.level2_select(out_s, rounds), reps)
+    plain_ms = event_ms(lambda: topk.level2_select_plain(out_s, rounds), reps)
+    select_ms = event_ms(lambda: topk.binned_stream_topk(out_s, out_i, kp), reps)
+    plain_select_ms = event_ms(lambda: topk.binned_stream_topk_plain(out_s, out_i, kp), reps)
+    bnd = card_bound(0, PEAK_BF16, 4 * B * W)
+    log(f"[{tag}] level2_select vs plain at B={B} W={W} rounds={rounds} kp={kp}: "
+        f"bit-identical (d2, col, worst2; top, ids, worst2), rerun twice; "
+        f"{ms:.3f} ms/call, plain {plain_ms:.3f} ms/call, {bnd}; whole select "
+        f"{select_ms:.3f} ms, plain {plain_select_ms:.3f} ms; finite kept {finite}")
+    return dict(ms=ms, plain_ms=plain_ms, **bnd, select_ms=select_ms,
+                plain_select_ms=plain_select_ms, B=B, W=W, rounds=rounds)
 
 
 def determinism(name: str = "packed_scan_v3", runs: int = 5) -> int:
@@ -451,6 +531,25 @@ def determinism(name: str = "packed_scan_v3", runs: int = 5) -> int:
     return cases
 
 
+def level2_determinism(runs: int = 5) -> int:
+    """Phase 3c, the level-2 select: ``runs`` times on the same stream, bit
+    for bit, over both bodies and both layouts, at B = 1024 and the
+    partitioned window's W (117,120) with tied scores and +inf. Returns the
+    cases run."""
+    g = torch.Generator(device=DEV).manual_seed(9)
+    s = torch.floor(torch.rand((1024, 117120), generator=g, device=DEV) * 16)
+    s[torch.rand(s.shape, generator=g, device=DEV) < 0.3] = float("inf")
+    cases = 0
+    for rounds, layout in ((8, "axis1"), (16, "axis1"), (40, "axis1"), (8, "lane")):
+        first = kernels.level2_select(s, rounds, layout)
+        for _ in range(runs - 1):
+            if not same_bits(first, kernels.level2_select(s, rounds, layout)):
+                raise AssertionError(f"level2_select is not deterministic [{rounds} {layout}]")
+        cases += 1
+    log(f"  level2_select determinism: {cases} cases × {runs} runs bit-identical")
+    return cases
+
+
 def lane_vs_plain() -> dict:
     """Phase 3, K3/K2/K4: R over both bodies, tiles, sample limits, permuted
     oid, ragged query blocks, lanes 112-127; for K4 also emptied bins,
@@ -463,7 +562,7 @@ def lane_vs_plain() -> dict:
     names = ("packed_scan", "packed_scan_v2", "bin_scan")
     worst = dict.fromkeys(names, 0.0)
     bodies = {name: {"wgmma": 0, "simt": 0} for name in names}
-    kernels.reset_launches()
+    reset_counts()
 
     def case(name, a, sn, db_tile, R, tag=""):
         agree, got = compare_once(name, a, sn, db_tile, R)
@@ -832,8 +931,10 @@ def run_engine(tag, eng, ds, qs, ref, seed) -> dict:
     assert agree["ok"], agree
     for _ in range(2):
         assert same_bits(got, getattr(kernels, name)(*args, **kw)), f"{name} rerun differs"
-    del got
     log(f"[{tag}] {name} rerun twice: bit-identical")
+    # the level-2 select on this stream: K1's paths select through it
+    level2 = level2_vs_plain(tag, *got, eng.kprime) if name == "packed_scan_v3" else None
+    del got
     reps = 10 if n <= 2_000_000 else 3
     ms = event_ms(lambda: getattr(kernels, name)(*args, **kw), reps)
     plain_ms = event_ms(lambda: kernels.plain[name](*args, **kw), reps)
@@ -851,7 +952,7 @@ def run_engine(tag, eng, ds, qs, ref, seed) -> dict:
     # warm-up, then the timed main path with the launch counts around it
     eng.search(generate_queries(B, seed=seed + 2, categories=workload.CATEGORIES))
     torch.cuda.synchronize()
-    kernels.reset_launches()
+    reset_counts()
     t0 = time.perf_counter()
     ids, dists = eng.search(qs)
     wall = time.perf_counter() - t0
@@ -867,7 +968,7 @@ def run_engine(tag, eng, ds, qs, ref, seed) -> dict:
     assert bodies == {"wgmma": launches["packed_scan_v3"], "simt": 0}, bodies
     for k, v in lane_bodies.items():
         assert v == {"wgmma": launches[k], "simt": 0}, lane_bodies
-    want_launches = dict.fromkeys(kernels.launches, 0)
+    want_launches = want_level2_launches()
     want_launches[name] += -(-qs.m // B)
     # rung 1 is the packed scan in scan_layout: K1 for axis1, K2 for lane
     rung1 = "packed_scan_v3" if eng.scan_layout == "axis1" else "packed_scan_v2"
@@ -899,7 +1000,7 @@ def run_engine(tag, eng, ds, qs, ref, seed) -> dict:
     return dict(name=name, qps=qs.m / wall, ms=ms, plain_ms=plain_ms, **bnd,
                 launches=launches, bodies=bodies, lane_bodies=lane_bodies,
                 max_abs_err=agree["max_abs_err"], suspects=ladder["suspects"],
-                ladder=ladder, ids=ids)
+                ladder=ladder, ids=ids, level2=level2)
 
 
 def k4_path(tag, db, qs) -> dict:
@@ -913,7 +1014,7 @@ def k4_path(tag, db, qs) -> dict:
     pos = torch.arange(db.n_pad, dtype=torch.int32, device=DEV)
     args = (db.Vp, db.C, db.T, db.d_norms, pos, qV, *fields, db.n)
     kw = dict(db_tile=Dt, bin_top=R)
-    kernels.reset_launches()
+    reset_counts()
     got = kernels.bin_scan(*args, **kw)
     torch.cuda.synchronize()
     launches = kernels.launches[name]
@@ -1005,15 +1106,17 @@ def window_vs_plain(tag, eng, qs) -> dict:
     assert agree["ok"], agree
     for _ in range(2):
         assert same_bits(got, kernels.packed_scan_v3(*args, **kw)), "K1 window rerun differs"
-    del got, pos
     log(f"[{tag}] K1 window rerun twice: bit-identical")
+    level2 = level2_vs_plain(f"{tag} window", *got, eng.kprime, reps=3)
+    del got, pos
     ms = event_ms(lambda: kernels.packed_scan_v3(*args, **kw), 3)
     plain_ms = event_ms(lambda: kernels.plain["packed_scan_v3"](*args, **kw), 3)
     rows = ntw * tv.db_tile
     bnd = k1_bound(tv.scan_V, B, rows * eng.bin_top // 128, rows)
     bnd["product_only_matmul_ms"] = product_only_ms(tv.scan_V, qV, row0, rows, 1)
     log(f"[{tag}] K1 window {ms:.3f} ms/call, plain {plain_ms:.3f} ms/call, {bnd}")
-    return dict(ms=ms, plain_ms=plain_ms, **bnd, max_abs_err=agree["max_abs_err"])
+    return dict(ms=ms, plain_ms=plain_ms, **bnd, max_abs_err=agree["max_abs_err"],
+                level2=level2)
 
 
 def path_partitioned(reused, seed: int = workload.PARTITIONED_SEED) -> dict:
@@ -1037,7 +1140,7 @@ def path_partitioned(reused, seed: int = workload.PARTITIONED_SEED) -> dict:
         f"route {eng.last_route}; time view built in "
         f"{eng.index.build_seconds.get('time_view', float('nan')):.1f} s")
     assert eng.index._time_view is not None
-    kernels.reset_launches()
+    reset_counts()
     t0 = time.perf_counter()
     ids, dists = eng.search(qs)
     wall = time.perf_counter() - t0
@@ -1047,7 +1150,7 @@ def path_partitioned(reused, seed: int = workload.PARTITIONED_SEED) -> dict:
     log(f"[{tag}] search {qs.m} queries: {wall:.3f} s = {qs.m / wall:.1f} QPS; "
         f"launches {launches}; K1 bodies {bodies}; route {json.dumps(route)}")
     windowed = sum(route["windowed_batches"].values())
-    want_launches = dict.fromkeys(kernels.launches, 0)
+    want_launches = want_level2_launches()
     want_launches["packed_scan_v3"] = (route["full_batches"] + windowed
                                        + route["ladder"].get("rung1_runs", 0))
     assert launches == want_launches, (launches, want_launches)
@@ -1149,7 +1252,7 @@ def path_paged(ds, qs, ref, batched_ids) -> dict:
     log(f"[{tag}] warm-up search {time.perf_counter() - t0:.1f} s "
         f"(pays the ‖d‖² bound over every row, {eng._dn_max_bound()})")
     uploads.clear()
-    kernels.reset_launches()
+    reset_counts()
     t0 = time.perf_counter()
     ids, dists = eng.search(qs)
     wall = time.perf_counter() - t0
@@ -1159,7 +1262,7 @@ def path_paged(ds, qs, ref, batched_ids) -> dict:
     reruns = dict(eng.last_reruns)
     log(f"[{tag}] search {qs.m} queries: {wall:.3f} s = {qs.m / wall:.1f} QPS; "
         f"launches {launches}; K1 bodies {bodies}; uploads {uploads}; reruns {reruns}")
-    want = dict.fromkeys(kernels.launches, 0)
+    want = want_level2_launches()
     want["packed_scan_v3"] = len(eng.windows) * -(-qs.m // eng.query_batch)
     assert launches == want, (launches, want)
     assert bodies == {"wgmma": want["packed_scan_v3"], "simt": 0}, bodies
@@ -1210,7 +1313,7 @@ def path_ivf() -> dict:
     qs = generate_queries(IVF_QUERIES, seed=1, categories=IVF_CATEGORIES,
                           clusters=IVF_CLUSTERS, centers_seed=0, types=(0,))
     log(f"[{tag}] data {time.perf_counter() - t0:.1f} s")
-    kernels.reset_launches()
+    reset_counts()
     t0 = time.perf_counter()
     eng = get_engine("ivf")(ds, device=DEV, cap=1024, query_batch=1024)
     torch.cuda.synchronize()
@@ -1235,7 +1338,7 @@ def path_ivf() -> dict:
         f"route {route}; recall@100 (64 oracle queries) = {rec}; launches {launches}")
     assert rec >= 0.99, rec
     assert np.abs(dists - true_d).max() <= 0.002 and (np.diff(dists, axis=1) >= -1e-6).all()
-    assert sum(launches.values()) == 0, launches
+    assert launches == want_level2_launches(), launches
     phases = PhaseTimer(device=DEV)
     eng.search(qs, phases=phases)
     log(f"[{tag}] phases (fenced run): {json.dumps(phases.as_dict())}")
@@ -1315,7 +1418,7 @@ def run_mesh_search(tag, eng, ds, qs, ref, partner_d, kernel: str, seed: int) ->
                                 categories=workload.CATEGORIES))
     torch.cuda.synchronize()
     peak_gb(tag)
-    kernels.reset_launches()
+    reset_counts()
     t0 = time.perf_counter()
     ids, dists = eng.search(qs)
     wall = time.perf_counter() - t0
@@ -1328,7 +1431,7 @@ def run_mesh_search(tag, eng, ds, qs, ref, partner_d, kernel: str, seed: int) ->
         f"launches {launches}; K1 bodies {bodies}; K3 bodies {lane_bodies['packed_scan']}; "
         f"ladder {ladder}; the search's peak of card memory {search_peak:.3f} GB")
     shards = eng.n_q * eng.n_d
-    want = dict.fromkeys(kernels.launches, 0)
+    want = want_level2_launches()
     want[kernel] = shards * (-(-qs.m // eng.query_batch) + ladder.get("rung1_runs", 0))
     assert launches == want, (launches, want)
     got_bodies = bodies if kernel == "packed_scan_v3" else lane_bodies[kernel]
@@ -1452,7 +1555,7 @@ def path_partitioned_sharded(ds, qs6, ref, partitioned_ids,
     planes = [v.scan_V for mv in eng._placed.values() for v in mv.shards]
     assert len({p.untyped_storage().data_ptr() for p in planes}) == len(eng._placed)
     peak_gb(tag)
-    kernels.reset_launches()
+    reset_counts()
     t0 = time.perf_counter()
     ids, dists = eng.search(qs)
     wall = time.perf_counter() - t0
@@ -1463,7 +1566,7 @@ def path_partitioned_sharded(ds, qs6, ref, partitioned_ids,
     log(f"[{tag}] search {qs.m} queries: {wall:.3f} s = {qs.m / wall:.1f} QPS; "
         f"launches {launches}; K1 bodies {bodies}; route {json.dumps(route)}; "
         f"the search's peak of card memory {search_peak:.3f} GB")
-    want = dict.fromkeys(kernels.launches, 0)
+    want = want_level2_launches()
     want["packed_scan_v3"] = MESH_SHARDS * (route["full_batches"]
                                             + route["ladder"].get("rung1_runs", 0))
     assert launches == want, (launches, want)
@@ -1530,7 +1633,7 @@ def repaired_search(tag, eng, ds, qs, ref, partner_ids, base: dict, k1_want, lad
     and the oracle and partner checks."""
     eng.search(warm)
     torch.cuda.synchronize()
-    kernels.reset_launches()
+    reset_counts()
     t0 = time.perf_counter()
     ids, dists = eng.search(qs)
     wall = time.perf_counter() - t0
@@ -1544,7 +1647,7 @@ def repaired_search(tag, eng, ds, qs, ref, partner_ids, base: dict, k1_want, lad
         f"{launches}; K1 bodies {bodies}; ladder with repair_bins={REPAIR_BINS} "
         f"{json.dumps(ladder)} vs without {json.dumps(base)}; certificate terms "
         f"(1 bin, 2 level 2, 4 k'-cut) {hist}")
-    want = dict.fromkeys(kernels.launches, 0)
+    want = want_level2_launches()
     want["packed_scan_v3"] = k1_want(eng, ladder)
     assert launches == want, (launches, want)
     assert bodies == {"wgmma": want["packed_scan_v3"], "simt": 0}, bodies
@@ -1642,7 +1745,7 @@ def path_deferred(ds, qs, ref, lane_db) -> dict:
     assert eng.scan_impl == "deferred" and eng.certified
     eng.search(generate_queries(eng.query_batch, seed=102, categories=workload.CATEGORIES))
     torch.cuda.synchronize()
-    kernels.reset_launches()
+    reset_counts()
     t0 = time.perf_counter()
     ids, dists = eng.search(qs)
     wall = time.perf_counter() - t0
@@ -1650,7 +1753,7 @@ def path_deferred(ds, qs, ref, lane_db) -> dict:
     bodies = dict(kernels.k1_body_launches)
     log(f"[{tag}] search {qs.m} queries: {wall:.3f} s = {qs.m / wall:.1f} QPS; "
         f"launches {launches}; K1 bodies {bodies}; ladder {ladder}")
-    want = dict.fromkeys(kernels.launches, 0)
+    want = want_level2_launches()
     want["packed_scan_v3"] = ladder.get("rung1_runs", 0)
     assert launches == want, (launches, want)
     assert bodies == {"wgmma": want["packed_scan_v3"], "simt": 0}, bodies
@@ -1685,11 +1788,11 @@ def path_strategies(ds, qs, ref, lane_db) -> dict:
                                     topk_strategy=strategy)
         eng.search(generate_queries(64, seed=103, categories=workload.CATEGORIES))
         torch.cuda.synchronize()
-        kernels.reset_launches()
+        reset_counts()
         t0 = time.perf_counter()
         ids, dists = eng.search(sub)
         wall = time.perf_counter() - t0
-        assert sum(kernels.launches.values()) == 0, kernels.launches
+        assert kernels.launches == want_level2_launches(), kernels.launches
         assert np.isfinite(dists).all() and (ids < ds.n).all()
         got_d = recompute_result_distances(ds, sub, ids.astype(np.int64))
         full = compare_distances(got_d, stream_d)
@@ -1723,12 +1826,12 @@ def path_bf16_storage(ds, qs, ref) -> dict:
     assert eng.db.Vp.dtype == torch.bfloat16 and not eng.certified
     eng.search(generate_queries(eng.query_batch, seed=104, categories=workload.CATEGORIES))
     torch.cuda.synchronize()
-    kernels.reset_launches()
+    reset_counts()
     t0 = time.perf_counter()
     ids, dists = eng.search(qs)
     wall = time.perf_counter() - t0
     launches = dict(kernels.launches)
-    want = dict.fromkeys(kernels.launches, 0)
+    want = want_level2_launches()
     if eng.scan_impl == "v3":
         want["packed_scan_v3"] = -(-qs.m // eng.query_batch)
     assert launches == want, (launches, want)
@@ -1841,7 +1944,7 @@ def path_harness() -> dict:
             "partitioned_sharded": [],
             "profiled": ["--profile", os.path.join(d, "trace")],
         }
-        kernels.reset_launches()
+        reset_counts()
         for name, extra in runs.items():
             engine = "batched" if name == "profiled" else name
             t0 = time.perf_counter()
@@ -1869,7 +1972,8 @@ LATENCY_ROWS, LATENCY_CALLS = 1_000_000, 50          # phase 12d's
 def counted() -> dict:
     """The launch counts since the last reset, in a path result's keys."""
     return dict(launches=dict(kernels.launches), bodies=dict(kernels.k1_body_launches),
-                lane_bodies={k: dict(v) for k, v in kernels.lane_body_launches.items()})
+                lane_bodies={k: dict(v) for k, v in kernels.lane_body_launches.items()},
+                level2_bodies=dict(kernels.level2_body_launches))
 
 
 def runner_counts(rec: dict) -> dict:
@@ -1877,18 +1981,22 @@ def runner_counts(rec: dict) -> dict:
     result's keys."""
     by_body = rec["launches_by_body"]
     return dict(launches=rec["launches"], bodies=by_body["packed_scan_v3"],
-                lane_bodies={k: by_body[k] for k in kernels.lane_body_launches})
+                lane_bodies={k: by_body[k] for k in kernels.lane_body_launches},
+                level2_bodies=by_body["level2_select"])
 
 
 def assert_k1_only(tag: str, counts: dict, wgmma: int | None = None) -> None:
-    """The path launched K1 and no lane kernel; every K1 launch on its
-    tensor-core body, or (``wgmma`` given) at least that many of them."""
+    """The path launched K1 (and the level-2 select) and no lane kernel;
+    every K1 launch on its tensor-core body, or (``wgmma`` given) at least
+    that many of them."""
     k1 = counts["launches"]["packed_scan_v3"]
     bodies = counts["bodies"]
     assert k1 >= 1 and bodies["wgmma"] + bodies["simt"] == k1, (tag, counts)
     assert bodies["wgmma"] >= (k1 if wgmma is None else wgmma), (tag, counts)
-    assert all(v == 0 for k, v in counts["launches"].items() if k != "packed_scan_v3"), (
-        tag, counts)
+    assert all(v == 0 for k, v in counts["launches"].items()
+               if k not in ("packed_scan_v3", "level2_select")), (tag, counts)
+    assert counts["level2_bodies"] == {"registers": counts["launches"]["level2_select"],
+                                       "shared": 0}, (tag, counts)
 
 
 def path_runner(ds, qs6) -> dict:
@@ -1909,7 +2017,7 @@ def path_runner(ds, qs6) -> dict:
     out = {}
     tag = "runner"
     t0 = time.perf_counter()
-    kernels.reset_launches()
+    reset_counts()
     dry = dryrun_multichip(MESH_SHARDS, device=DEV.type)
     out["dryrun"] = dict(counted(), seconds=time.perf_counter() - t0, **dry)
     cap = dry["capacity"]
@@ -1987,7 +2095,7 @@ def path_runner(ds, qs6) -> dict:
     saved = {k: os.environ.get(k) for k in ("SL_N", "SL_CALLS")}
     os.environ.update(SL_N=str(LATENCY_ROWS), SL_CALLS=str(LATENCY_CALLS))
     t0 = time.perf_counter()
-    kernels.reset_launches()
+    reset_counts()
     try:
         recs = serving_latency.main(DEV.type)
     finally:
@@ -2111,6 +2219,21 @@ def kernel_entries(r6: dict, r7: dict, r8: dict, worst: dict, cert: dict,
                 e.update(launches_phase12={k: r["launches"][name]
                                            for k, r in runner.items()})
         entries.append(e)
+    l2 = r7["level2"]
+    # every path's level-2 launches ran the register body: want_level2_launches
+    # and assert_k1_only hold each path to that
+    n = sum(p["launches"]["level2_select"] for p in paths)
+    entries.append(dict(
+        name="level2_select", route="cuda", source="hvq_tpu_torch/csrc/level2_select.cu",
+        # no TPU kernel: the JAX package's jnp reduce, which XLA runs
+        replaces=None, computes="hvq_tpu/ops/topk.py:88", library=library,
+        launches=n, bodies={"registers": n, "shared": 0},
+        ms=l2["ms"], plain_ms=l2["plain_ms"], bound_ms=l2["bound_ms"],
+        bound_by=l2["bound_by"], library_ms=None, select_ms=l2["select_ms"],
+        plain_select_ms=l2["plain_select_ms"], max_abs_err=0.0,     # bit for bit
+        deterministic_cases=deterministic["level2_select"],
+        shapes={"d1e7_bf16": l2, "window_d1e7_bf16": r8["window"]["level2"],
+                "d1e6_fp32": r6["v3"]["level2"]}))
     return entries
 
 
@@ -2130,6 +2253,7 @@ class Laps:
 
 def main() -> int:
     card = probe()
+    batched.binned_stream_topk = counting_selects(batched.binned_stream_topk)
     lap = Laps()
     build()
     lap("2")
@@ -2143,7 +2267,8 @@ def main() -> int:
         cert[name] = certificate_error(name, 8192, 4, planes=("fp32",))
     cert["bin_scan"] = certificate_error("bin_scan", 2048, 2, planes=("fp32",))
     log(f"certificate error, share of the slack used (≤ 0.5): {cert}")
-    deterministic = {name: determinism(name) for name in kernels.launches}
+    deterministic = {name: determinism(name) for name in KERNELS}
+    deterministic["level2_select"] = level2_determinism()
     lap("3b-3c")
     log("TPU probe kernels (phase 3d):")
     probes = probe_phase(os.path.basename(probe_kernels.build_info["path"]))

@@ -1,15 +1,19 @@
 """Hand-written CUDA kernels: build, ctypes binding and wrappers.
 
-Each replaces a Pallas kernel of ``hvq_tpu/ops/pallas_scan.py``:
+The scans each replace a Pallas kernel of ``hvq_tpu/ops/pallas_scan.py``:
 
 * K1 ``packed_scan_v3`` (``csrc/packed_scan_v3.cu``) — ``fused_packed_scan_v3``;
 * K3 ``packed_scan``, K2 ``packed_scan_v2`` and K4 ``bin_scan``
   (``csrc/lane_scan.cu``) — ``fused_packed_scan``, ``fused_packed_scan_v2``
   and ``fused_bin_scan``.
 
+The level-2 select ``level2_select`` (``csrc/level2_select.cu``) replaces
+none: it is the kernel of the reduce the JAX package writes in ``jnp``
+(``hvq_tpu/ops/topk.py`` ``binned_stream_topk``).
+
 K1, K3, K2 and K4 share one tensor-core body (``csrc/scan_wgmma.cuh``,
-which both sources include) for ``bin_top`` ≤ 8 and keep a CUDA-core body
-above: dispatch on shape, both built and checked.
+which both scan sources include) for ``bin_top`` ≤ 8 and keep a CUDA-core
+body above: dispatch on shape, both built and checked.
 
 The sources are compiled with ``nvcc`` for ``sm_90a``, one process per
 source in parallel, and linked into one shared library with a plain C
@@ -17,13 +21,14 @@ interface, at first CUDA use, into ``hvq_tpu_torch/_build/`` keyed by a
 hash of the sources, the header and the flags. Importing this module
 builds nothing and needs no ``nvcc``.
 
-Each wrapper runs its kernel's plain PyTorch version (in ``ops/scan.py``)
-for tensors on the CPU and launches the kernel for CUDA tensors, or
-raises: there is no fallback. ``launches`` counts kernel launches only;
-``k1_body_launches`` splits K1's by body and ``lane_body_launches`` K3's,
-K2's and K4's (the library says which body runs). Every launch goes
-through :func:`run`, kept thin: at small shapes the host's launch path,
-not the kernel, sets the time.
+Each wrapper runs its kernel's plain PyTorch version (in ``ops/scan.py``;
+the select's in ``ops/topk.py``) for tensors on the CPU and launches the
+kernel for CUDA tensors, or raises: there is no fallback. ``launches``
+counts kernel launches only; ``k1_body_launches`` splits K1's by body,
+``lane_body_launches`` K3's, K2's and K4's and ``level2_body_launches`` the
+select's (the library says which body runs). Every launch goes through
+:func:`run`, kept thin: at small shapes the host's launch path, not the
+kernel, sets the time.
 """
 
 from __future__ import annotations
@@ -46,7 +51,7 @@ from hvq_tpu_torch.ops.scan import (
     packed_scan_plain,
     scan_window,
 )
-from hvq_tpu_torch.ops.topk import BIN
+from hvq_tpu_torch.ops.topk import BIN, level2_select_plain
 from hvq_tpu_torch.utils import timing
 from hvq_tpu_torch.utils.timing import current_device as _current_device
 from hvq_tpu_torch.utils.timing import raw_stream as _raw_stream
@@ -55,8 +60,9 @@ _PKG = Path(__file__).resolve().parent.parent
 _SOURCES = (
     _PKG / "csrc" / "packed_scan_v3.cu",
     _PKG / "csrc" / "lane_scan.cu",
+    _PKG / "csrc" / "level2_select.cu",
 )
-# Included by both sources: the tensor-core body of K1, K3, K2 and K4.
+# Included by both scan sources: the tensor-core body of K1, K3, K2 and K4.
 _HEADERS = (_PKG / "csrc" / "scan_wgmma.cuh",)
 BUILD_DIR = _PKG / "_build"
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -69,7 +75,7 @@ CUDA_ROOTS = ("/usr/local/cuda",)
 
 # Kernel launches by wrapper name, since import or the last reset().
 launches = {"packed_scan_v3": 0, "packed_scan": 0, "packed_scan_v2": 0,
-            "bin_scan": 0}
+            "bin_scan": 0, "level2_select": 0}
 # K1's launches by body (csrc/packed_scan_v3.cu): the tensor-core body for
 # bin_top ≤ 8, the CUDA-core body above; the library says which runs.
 k1_body_launches = {"wgmma": 0, "simt": 0}
@@ -77,6 +83,10 @@ _BODIES = ("wgmma", "simt")
 # K3's, K2's and K4's launches by body (csrc/lane_scan.cu), as K1's.
 lane_body_launches = {name: {"wgmma": 0, "simt": 0}
                       for name in ("packed_scan", "packed_scan_v2", "bin_scan")}
+# The level-2 select's launches by body (csrc/level2_select.cu): its keys in
+# registers for rounds ≤ 16, in shared memory above.
+level2_body_launches = {"registers": 0, "shared": 0}
+_LEVEL2_BODIES = ("registers", "shared")
 
 # ``mode`` of the C entry point hvq_lane_scan for each lane-layout kernel.
 _LANE_MODES = {"packed_scan": 0, "packed_scan_v2": 1, "bin_scan": 2}
@@ -87,7 +97,8 @@ build_info: dict = {}
 
 
 def reset_launches() -> None:
-    for counts in (launches, k1_body_launches, *lane_body_launches.values()):
+    for counts in (launches, k1_body_launches, level2_body_launches,
+                   *lane_body_launches.values()):
         for name in counts:
             counts[name] = 0
 
@@ -208,6 +219,12 @@ _ENTRY_POINTS = {
         + [ctypes.c_void_p] * 3                   # out_d out_i stream
     ),
     "hvq_lane_scan_body": [ctypes.c_int, ctypes.c_int],   # mode, R
+    "hvq_level2_select": (
+        [ctypes.c_void_p]                         # s
+        + [ctypes.c_int] * 5                      # B W rounds ls bs
+        + [ctypes.c_void_p] * 4                   # d2 col worst2 stream
+    ),
+    "hvq_level2_select_body": [ctypes.c_int],    # rounds
 }
 
 
@@ -448,6 +465,56 @@ def bin_scan(
                       active_t, l, r, sn, db_tile, bin_top)
 
 
+def level2_select(out_s, rounds: int, layout: str = "axis1"):
+    """The level-2 select: each 128-member bin of the (B, W) fp32 stream
+    ``out_s`` reduced to its best ``rounds`` packed keys, output contract of
+    :func:`~hvq_tpu_torch.ops.topk.level2_select_plain` bit for bit (d2,
+    col, worst2; bins2 = ⌈W/128⌉ bins, ``layout`` "axis1" or "lane").
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel, read
+    in place (no packed or padded copy): its register body for ``rounds`` ≤
+    16, its shared-memory body above (counted apart in
+    ``level2_body_launches``). Under an active tracer
+    (``utils.timing.recording``) each call counts a ``level2_select`` with
+    its B, W, rounds, layout and body ("plain" on the CPU).
+    """
+    if layout not in ("axis1", "lane"):
+        raise ValueError(f"layout must be 'axis1' or 'lane', not {layout!r}")
+    if not 1 <= rounds <= BIN:
+        raise ValueError(f"rounds must be in [1, {BIN}], got {rounds}")
+    if not isinstance(out_s, torch.Tensor) or out_s.dim() != 2:
+        raise ValueError("out_s must be a (B, W) tensor")
+    device = out_s.device
+    B, W = out_s.shape
+    _check("out_s", out_s, (torch.float32,), (B, W), device)
+    if device.type == "cpu":
+        _count_level2(B, W, rounds, layout, "plain")
+        return level2_select_plain(out_s, rounds, layout)
+    if device.type != "cuda":
+        raise ValueError(f"the level-2 select runs on cpu or cuda, not {device}")
+    bins2 = -(-W // BIN)
+    lane_stride, bin_stride = (bins2, 1) if layout == "axis1" else (1, BIN)
+    d2 = torch.empty((B, rounds * bins2), dtype=torch.float32, device=device)
+    col = torch.empty((B, rounds * bins2), dtype=torch.int32, device=device)
+    worst2 = torch.empty((B,), dtype=torch.float32, device=device)
+    lib = build()
+    run("level2_select", device, lib.hvq_level2_select, out_s.data_ptr(), B, W,
+        rounds, lane_stride, bin_stride, d2.data_ptr(), col.data_ptr(),
+        worst2.data_ptr())
+    launches["level2_select"] += 1
+    body = _LEVEL2_BODIES[lib.hvq_level2_select_body(rounds)]
+    level2_body_launches[body] += 1
+    _count_level2(B, W, rounds, layout, body)
+    return d2, col, worst2
+
+
+def _count_level2(B, W, rounds, layout, body):
+    tracer = timing.active_tracer
+    if tracer is not None:
+        tracer.count("level2_select", B=B, W=W, rounds=rounds, layout=layout,
+                     body=body)
+
+
 # Each wrapper's plain PyTorch version: what it runs on CPU tensors, and
 # what a kernel is held against on the card.
 plain = {
@@ -457,4 +524,5 @@ plain = {
     "packed_scan_v2": functools.partial(packed_scan_plain, layout="lane",
                                         precision="high"),
     "bin_scan": bin_scan_plain,
+    "level2_select": level2_select_plain,
 }

@@ -77,37 +77,25 @@ def final_topk(scores: torch.Tensor, ids: torch.Tensor, k: int):
     return top, torch.gather(ids, 1, idx)
 
 
-def binned_stream_topk(
-    out_s: torch.Tensor,  # (B, W) candidate stream, non-negative, +inf empty
-    out_i: torch.Tensor,  # (B, W) candidate positions
-    kp: int,
-    rounds: int = 8,
-    nt: int | None = None,
-    layout: str = "axis1",
-):
-    """Level-2 packed bin reduce before the final candidate top-k.
+def level2_select_plain(out_s: torch.Tensor, rounds: int, layout: str = "axis1"):
+    """The level-2 packed bin reduce, plain PyTorch: each 128-member bin of
+    the (B, W) stream (+inf past W) to its best ``rounds`` packed keys, by
+    ``rounds`` min rounds, each masking the lane it took to ``INF_KEY``.
+    ``layout="axis1"``: bins are the strided column groups {b, b+bins2, …};
+    ``layout="lane"``: contiguous 128-column bins.
 
-    ``hvq_tpu.ops.topk.binned_stream_topk``: the stream is cut into 128-
-    column bins, each reduced to its best ``rounds`` packed keys, then one
-    top-k over the reduced stream. ``layout="axis1"`` (the default): bins
-    are the strided column groups {b, b+bins2, …}. ``layout="lane"``:
-    contiguous 128-column bins; ``nt`` (the tile count) first transposes
-    the stream to (bin-slot, tile) order so a bin samples across tiles.
-    Returns (scores (B, kp), ids (B, kp), worst2 (B,)), where worst2 is
-    the min over bins of the ``rounds``-th kept value (+inf where no bin
-    saturated) and feeds the exactness certificate.
+    Returns, in round-major order (bins2 = ⌈W/128⌉): d2 (B, rounds·bins2)
+    fp32 (each key with its lane bits cleared), col (B, rounds·bins2) int32
+    (the key's stream column; a bin whose finite keys are used up emits
+    ``INF_KEY``, lane 0, again each round) and worst2 (B,), the min over bins
+    of the ``rounds``-th kept value. What ``ops.kernels.level2_select`` runs
+    on CPU tensors and is held against on the card.
     """
     B, W = out_s.shape
-    if layout != "axis1" and nt is not None and nt > 1 and W % nt == 0:
-        rb = W // nt
-        out_s = out_s.view(B, nt, rb).transpose(1, 2).reshape(B, W)
-        out_i = out_i.view(B, nt, rb).transpose(1, 2).reshape(B, W)
     Wp = -(-W // BIN) * BIN
     if Wp != W:
         out_s = torch.nn.functional.pad(out_s, (0, Wp - W), value=float("inf"))
     bins2 = Wp // BIN
-    # the reduced stream must still be able to hold kp candidates
-    rounds = min(max(rounds, -(-kp // bins2)), BIN)
     red = 1 if layout == "axis1" else 2
     lane = torch.arange(BIN, dtype=torch.int32, device=out_s.device)
     lane = lane.view((1, BIN, 1) if red == 1 else (1, 1, BIN))
@@ -131,6 +119,56 @@ def binned_stream_topk(
         col = colb * BIN + (keys & 0x7F)             # contiguous bins
     col = col.reshape(B, rounds * bins2)
     d2 = (keys & KEY_MASK).view(torch.float32).reshape(B, rounds * bins2)
+    return d2, col, worst2
+
+
+def binned_stream_topk(
+    out_s: torch.Tensor,  # (B, W) candidate stream, non-negative, +inf empty
+    out_i: torch.Tensor,  # (B, W) candidate positions
+    kp: int,
+    rounds: int = 8,
+    nt: int | None = None,
+    layout: str = "axis1",
+):
+    """Level-2 packed bin reduce before the final candidate top-k.
+
+    ``hvq_tpu.ops.topk.binned_stream_topk``: the stream is cut into 128-
+    column bins, each reduced to its best ``rounds`` packed keys, then one
+    top-k over the reduced stream. ``layout="axis1"`` (the default): bins
+    are the strided column groups {b, b+bins2, …}. ``layout="lane"``:
+    contiguous 128-column bins; ``nt`` (the tile count) first transposes
+    the stream to (bin-slot, tile) order so a bin samples across tiles.
+    The reduce is ``ops.kernels.level2_select``: its CUDA kernel for a
+    tensor on the card, :func:`level2_select_plain` on the CPU.
+    Returns (scores (B, kp), ids (B, kp), worst2 (B,)), where worst2 is
+    the min over bins of the ``rounds``-th kept value (+inf where no bin
+    saturated) and feeds the exactness certificate.
+    """
+    from hvq_tpu_torch.ops import kernels   # which imports this module
+
+    return _binned_stream_topk(kernels.level2_select, out_s, out_i, kp,
+                               rounds, nt, layout)
+
+
+def binned_stream_topk_plain(out_s, out_i, kp: int, rounds: int = 8,
+                             nt: int | None = None, layout: str = "axis1"):
+    """:func:`binned_stream_topk` with the reduce of
+    :func:`level2_select_plain` on any device: what the kernel's select is
+    held against on the card."""
+    return _binned_stream_topk(level2_select_plain, out_s, out_i, kp, rounds,
+                               nt, layout)
+
+
+def _binned_stream_topk(reduce, out_s, out_i, kp, rounds, nt, layout):
+    B, W = out_s.shape
+    if layout != "axis1" and nt is not None and nt > 1 and W % nt == 0:
+        rb = W // nt
+        out_s = out_s.view(B, nt, rb).transpose(1, 2).reshape(B, W)
+        out_i = out_i.view(B, nt, rb).transpose(1, 2).reshape(B, W)
+    bins2 = -(-W // BIN)
+    # the reduced stream must still be able to hold kp candidates
+    rounds = min(max(rounds, -(-kp // bins2)), BIN)
+    d2, col, worst2 = reduce(out_s.contiguous(), rounds, layout)
     kp = min(kp, rounds * bins2)
     top, idx = smallest_k(d2, kp)
     sel_col = torch.gather(col, 1, idx)

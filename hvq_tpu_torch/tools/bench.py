@@ -14,8 +14,8 @@ same meaning (``metric``, ``value``, ``unit``, ``vs_baseline``,
 ``full_diff_queries``, ``full_diff_engines``, ``cert_terms_hist``,
 ``host_counters``) and adds ``backend`` ("torch"), ``device`` (the card's
 name and power limit as ``nvidia-smi`` prints them, or "cpu"), ``torch``
-and ``cuda`` (the versions), ``launches`` (K1–K4 of the median timed
-search) and ``launches_by_body``. The line is printed the moment the
+and ``cuda`` (the versions), ``launches`` (K1–K4 and the level-2 select
+of the median timed search) and ``launches_by_body``. The line is printed the moment the
 measurement ends; an enriched superset follows when the oracle check and
 again when the full diff finishes, so a parser of the first or the last
 JSON line gets a valid record.
@@ -419,6 +419,7 @@ def _launch_counts() -> tuple[dict, dict]:
     return dict(kernels.launches), {
         "packed_scan_v3": dict(kernels.k1_body_launches),
         **{k: dict(v) for k, v in kernels.lane_body_launches.items()},
+        "level2_select": dict(kernels.level2_body_launches),
     }
 
 

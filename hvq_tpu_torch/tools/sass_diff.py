@@ -3,8 +3,8 @@
     python -m hvq_tpu_torch.tools.sass_diff --reference DIR [--out chiprun_out/sass_diff.json]
 
 Compiles the engines' library sources (``ops/kernels.py``'s ``_SOURCES``:
-K1's ``packed_scan_v3.cu``, K3/K2/K4's ``lane_scan.cu``, with the headers
-beside them) from this tree and from DIR, another tree's
+K1's ``packed_scan_v3.cu``, K3/K2/K4's ``lane_scan.cu``, the level-2
+select's ``level2_select.cu``, with the headers beside them) from this tree and from DIR, another tree's
 ``hvq_tpu_torch/csrc`` (e.g. an earlier commit's, unpacked with ``git
 archive``), with the library's own nvcc flags; dumps each object with
 ``cuobjdump -sass``; and compares the kernels one by one, instruction for
@@ -37,10 +37,13 @@ _DEFAULT_KEY = "PackedKey"  # csrc/scan_wgmma.cuh: scan_wgmma's default Key
 
 def compile_tree(nvcc: str, tree: Path, work: Path) -> list[Path]:
     """Each engine source of ``tree`` to an object in ``work``, all at
-    once."""
+    once (a source an older tree lacks is skipped: its kernels read as
+    "only here")."""
     work.mkdir(parents=True, exist_ok=True)
     jobs = []
     for src in kernels._SOURCES:
+        if not (tree / src.name).exists():
+            continue
         obj = work / f"{src.stem}.o"
         cmd = [nvcc, *kernels.NVCC_FLAGS, "-c", "-o", str(obj), str(tree / src.name)]
         jobs.append((obj, cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,

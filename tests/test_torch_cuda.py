@@ -1,5 +1,6 @@
-"""Card-only tests of the port: the CUDA kernels K1–K4 and the TPU probe
-kernels against their plain versions, and the engines on the card.
+"""Card-only tests of the port: the CUDA kernels K1–K4, the level-2 select
+and the TPU probe kernels against their plain versions, and the engines on
+the card.
 
 A CUDA kernel has no CPU mode, so every test here is marked ``cuda`` and
 skips where no NVIDIA GPU is present. On a GPU machine with nvcc:
@@ -15,7 +16,7 @@ import pytest
 import torch
 
 from hvq_tpu_torch.models.oracle import search_oracle
-from hvq_tpu_torch.ops import kernels, probe_kernels
+from hvq_tpu_torch.ops import kernels, probe_kernels, topk
 from hvq_tpu_torch.ops.masks import query_predicate_fields
 from hvq_tpu_torch.ops.scan import packed_scan_plain
 from hvq_tpu_torch.tools import int8_probe, pallas_probe, v3_anatomy
@@ -926,3 +927,132 @@ def test_batched_ids_only_fetch_matches_the_full_fetch_on_the_card(cuda, monkeyp
         np.testing.assert_array_equal(eng._last_cert_terms, full_terms)
         if bin_top == 1:
             assert full_ladder["suspects"] > 0, full_ladder
+
+
+def _l2_stream(device, B, W, seed, inf_frac=0.3, levels=None):
+    """A (B, W) candidate stream on the card: scores in [0, 100) (on
+    ``levels`` values, so keys tie and the lane decides), +inf at
+    ``inf_frac``, and distinct int32 positions."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    s = torch.rand((B, W), generator=g, device=device) * 100
+    if levels:
+        s = torch.floor(s * (levels / 100))
+    s[torch.rand((B, W), generator=g, device=device) < inf_frac] = float("inf")
+    pos = torch.randperm(B * W, generator=g, device=device).view(B, W)
+    return s, (pos % (1 << 30)).to(torch.int32)
+
+
+def _l2_same(s, i, kp, rounds=8, nt=None, layout="axis1"):
+    """The kernel's select against the plain one on the same stream, bit
+    for bit: the reduce (d2, col, worst2), then (top, gids, worst2)."""
+    W = s.shape[1]
+    bins2 = -(-W // 128)
+    rounds = min(max(rounds, -(-kp // bins2)), 128)
+    src = s
+    if layout == "lane" and nt:
+        src = s.view(s.shape[0], nt, W // nt).transpose(1, 2).reshape(s.shape)
+    got = kernels.level2_select(src, rounds, layout)
+    want = topk.level2_select_plain(src, rounds, layout)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    got = topk.binned_stream_topk(s, i, kp, rounds=rounds, nt=nt, layout=layout)
+    want = topk.binned_stream_topk_plain(s, i, kp, rounds=rounds, nt=nt, layout=layout)
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,W,kp,rounds,inf_frac,levels", [
+    (1024, 234624, 240, 8, 0.0, None),      # the benchmark's full batch
+    (1024, 117120, 240, 8, 0.3, None),      # its windowed batch (ntw 305)
+    (64, 234624, 240, 8, 0.3, 40),          # a rerun-sized batch, tied keys
+    (64, 20000, 240, 8, 0.5, None),         # W not a multiple of 128
+    (64, 30000, 240, 8, 0.97, 4),           # bins with fewer than 8 finite
+    (64, 30000, 240, 16, 0.6, None),        # the register body at cap 16
+    (64, 30000, 240, 40, 0.6, 8),           # the shared-memory body
+    (16, 16384, 2048, 8, 0.2, None),        # kp asks for 16 rounds
+    (16, 16384, 240, 128, 0.9, None),       # every member of a bin
+])
+def test_level2_select_matches_plain_bit_for_bit(cuda, B, W, kp, rounds, inf_frac, levels):
+    s, i = _l2_stream(cuda, B, W, seed=B + W + rounds, inf_frac=inf_frac, levels=levels)
+    s[1] = float("inf")                                  # an all-+inf row
+    top, _, worst2 = _l2_same(s, i, kp, rounds)
+    assert torch.isinf(top[1]).all() and torch.isinf(worst2[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,nt,rounds", [(24576, 128, 8), (31488, 123, 8),
+                                         (24576, 128, 24), (20000, None, 8)])
+def test_level2_select_lane_layout_matches_plain_bit_for_bit(cuda, W, nt, rounds):
+    s, i = _l2_stream(cuda, 64, W, seed=W, inf_frac=0.4, levels=64)
+    _l2_same(s, i, 240, rounds, nt=nt, layout="lane")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rounds", [8, 16, 40])
+def test_level2_select_is_deterministic(cuda, rounds):
+    s, _ = _l2_stream(cuda, 1024, 117120, seed=rounds, inf_frac=0.3, levels=16)
+    first = kernels.level2_select(s, rounds)
+    for _ in range(4):
+        again = kernels.level2_select(s, rounds)
+        assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+def test_level2_select_counts_launches_per_body(cuda):
+    s, _ = _l2_stream(cuda, 8, 16384, seed=2)
+    kernels.reset_launches()
+    for rounds in (1, 8, 9, 16, 17, 128):
+        kernels.level2_select(s, rounds)
+    topk.level2_select_plain(s, 8)
+    assert kernels.level2_body_launches == {"registers": 4, "shared": 2}
+    assert kernels.launches == {**dict.fromkeys(kernels.launches, 0), "level2_select": 6}
+
+
+@pytest.mark.cuda
+def test_level2_select_raises_instead_of_falling_back(cuda):
+    s, _ = _l2_stream(cuda, 8, 16384, seed=3)
+    with pytest.raises(TypeError):
+        kernels.level2_select(s.double(), 8)
+    with pytest.raises(ValueError):
+        kernels.level2_select(s.t().contiguous().t(), 8)
+    with pytest.raises(ValueError):
+        kernels.level2_select(torch.empty((8, 16384), device="meta"), 8)
+    for rounds in (0, 129):
+        with pytest.raises(ValueError):
+            kernels.level2_select(s, rounds)
+    with pytest.raises(ValueError):
+        kernels.level2_select(s, 8, layout="lanes")
+
+
+@pytest.mark.cuda
+def test_partitioned_search_selects_through_the_level2_kernel(cuda, monkeypatch):
+    """Full batches of 10⁶ rows stream W ≥ 16384, so every one goes through
+    the kernel (its register body); the plain select in its place gives the
+    same ladder, and both answers are exact."""
+    from hvq_tpu_torch import get_engine
+
+    ds = generate_dataset(1_000_000, seed=21, categories=30)
+    qs = generate_queries(2048, seed=22, categories=30)
+    eng = get_engine("partitioned")(ds, device=cuda)
+    kernels.reset_launches()
+    ids, dists = eng.search(qs)
+    full = eng.last_route["full_batches"]
+    assert full >= 1 and kernels.launches["level2_select"] >= full
+    assert kernels.level2_body_launches == {"registers": kernels.launches["level2_select"],
+                                            "shared": 0}
+    ladder = dict(eng.last_ladder)
+    monkeypatch.setattr(kernels, "level2_select", topk.level2_select_plain)
+    ids_p, dists_p = eng.search(qs)
+    assert eng.last_ladder == ladder
+    sub = slice(0, 64)
+    oqs = type(qs)(**{k: getattr(qs, k)[sub] for k in ("qtype", "v", "l", "r", "V")})
+    oids, odists = search_oracle(ds, oqs)
+    for got in (ids, ids_p):
+        res = compare_distances(
+            recompute_result_distances(ds, oqs, got[sub].astype(np.int64)),
+            recompute_result_distances(ds, oqs, oids.astype(np.int64)))
+        assert res.ok, res

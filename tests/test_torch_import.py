@@ -202,8 +202,10 @@ def test_kernel_module_imports_without_nvcc_and_build_says_why(tmp_path):
         "from hvq_tpu_torch.ops import kernels\n"
         "kernels.CUDA_ROOTS = ()\n"
         "assert kernels.launches == {'packed_scan_v3': 0, 'packed_scan': 0,\n"
-        "                            'packed_scan_v2': 0, 'bin_scan': 0}\n"
+        "                            'packed_scan_v2': 0, 'bin_scan': 0,\n"
+        "                            'level2_select': 0}\n"
         "assert kernels.k1_body_launches == {'wgmma': 0, 'simt': 0}\n"
+        "assert kernels.level2_body_launches == {'registers': 0, 'shared': 0}\n"
         "try:\n"
         "    kernels.build()\n"
         "except RuntimeError as e:\n"
@@ -247,14 +249,17 @@ def test_chip_smoke_imports_no_jax_and_refuses_without_a_card():
 
 def test_k1_ablation_edits_find_their_anchors_in_the_source():
     """tools/k1_ablate builds its variants by anchored edits of K1's
-    tensor-core body, the header both kernel sources include: each anchor
+    tensor-core body, the header both scan sources include: each anchor
     must occur exactly once, and each edit must change the text (importing
     the tool needs no card and no nvcc)."""
     from hvq_tpu_torch.ops import kernels
     from hvq_tpu_torch.tools import k1_ablate
 
     src = kernels._HEADERS[0].read_text()
-    for cu in kernels._SOURCES:
+    scans = [cu for cu in kernels._SOURCES
+             if cu.name in ("packed_scan_v3.cu", "lane_scan.cu")]
+    assert len(scans) == 2
+    for cu in scans:
         assert f'#include "{kernels._HEADERS[0].name}"' in cu.read_text()
     assert k1_ablate.VARIANTS["base"] == ()
     for name, edits in k1_ablate.VARIANTS.items():
@@ -338,9 +343,15 @@ def test_chip_smoke_certificate_ratio_nets_the_key_term_only_for_packed_keys():
     assert packed == pytest.approx(float(want)) and packed < unpacked
 
 
+# A synthetic level-2 select result of chip_smoke (level2_vs_plain's keys).
+_LEVEL2 = dict(ms=0.4, plain_ms=15.0, bound_ms=0.287, bound_by="bytes", select_ms=0.6,
+               plain_select_ms=15.5, B=1024, W=234624, rounds=8)
+
+
 def _path(name):
     """A synthetic main-path result of chip_smoke (its run_engine keys)."""
-    launches = {"packed_scan_v3": 0, "packed_scan": 0, "packed_scan_v2": 0, "bin_scan": 0}
+    launches = {"packed_scan_v3": 0, "packed_scan": 0, "packed_scan_v2": 0, "bin_scan": 0,
+                "level2_select": 10 if name == "packed_scan_v3" else 0}
     launches[name] = 10
     bodies = {"wgmma": 10 if name == "packed_scan_v3" else 0, "simt": 0}
     lanes = {k: {"wgmma": 0, "simt": 0} for k in ("packed_scan", "packed_scan_v2", "bin_scan")}
@@ -349,7 +360,8 @@ def _path(name):
     return dict(name=name, qps=1.0, ms=2.0, plain_ms=50.0, bound_ms=1.0,
                 bound_by="operations", product_only_matmul_ms=1.5, launches=launches,
                 bodies=bodies, lane_bodies=lanes, max_abs_err=0.01,
-                bound_fp32_simt_ms=3.0)
+                bound_fp32_simt_ms=3.0,
+                level2=_LEVEL2 if name == "packed_scan_v3" else None)
 
 
 def test_chip_smoke_kernels_line_carries_k4s_new_keys():
@@ -365,11 +377,12 @@ def test_chip_smoke_kernels_line_carries_k4s_new_keys():
     r7 = _path("packed_scan_v3")
     r8 = dict(_path("packed_scan_v3"), window=dict(ms=7.0, plain_ms=300.0, bound_ms=1.0,
                                                    bound_by="operations",
-                                                   product_only_matmul_ms=4.0))
+                                                   product_only_matmul_ms=4.0,
+                                                   level2=dict(_LEVEL2, W=117120)))
     names = ("packed_scan_v3", "packed_scan", "packed_scan_v2", "bin_scan")
     worst = dict.fromkeys(names, 0.001)
     cert = {n: {"fp32": 0.01 * (i + 1)} for i, n in enumerate(names)}
-    det = {n: 7 for n in names}
+    det = {n: 7 for n in names + ("level2_select",)}
     entries = {e["name"]: e for e in cs.kernel_entries(r6, r7, r8, worst, cert, det, "lib.so")}
     k4 = entries["bin_scan"]
     assert k4["bodies"] == {"wgmma": 1, "simt": 0} and k4["launches"] == 1
@@ -377,6 +390,12 @@ def test_chip_smoke_kernels_line_carries_k4s_new_keys():
     assert k4["product_only_matmul_ms"] == 5.6 and k4["ms"] == 5.5 and k4["bound_ms"] == 1.252
     assert k4["max_abs_err"] == 0.002 and k4["library_ms"] is None
     assert entries["packed_scan"]["bodies"] == {"wgmma": 10, "simt": 0}
+    l2 = entries["level2_select"]
+    assert l2["launches"] == 30 and l2["bodies"] == {"registers": 30, "shared": 0}
+    assert (l2["ms"], l2["plain_ms"], l2["bound_ms"], l2["bound_by"]) == (0.4, 15.0, 0.287,
+                                                                       "bytes")
+    assert l2["replaces"] is None and l2["library_ms"] is None
+    assert l2["shapes"]["window_d1e7_bf16"]["W"] == 117120
     need = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms"}
     assert all(need <= set(e) for e in entries.values())
@@ -462,7 +481,7 @@ def test_chip_smoke_kernels_line_carries_the_paged_k1_launches():
                      bound_fp32_simt_ms=3.08, product_only_matmul_ms=5.6, launches=1,
                      bodies={"wgmma": 1, "simt": 0}, max_abs_err=0.002)}
     win = dict(ms=7.0, plain_ms=300.0, bound_ms=1.0, bound_by="operations",
-               product_only_matmul_ms=4.0)
+               product_only_matmul_ms=4.0, level2=_LEVEL2)
     r8 = dict(_path("packed_scan_v3"), window=win)
     paged = dict(_path("packed_scan_v3"), window=dict(win, ms=9.5), qps=4321.0,
                  max_abs_err=0.02)
@@ -470,7 +489,7 @@ def test_chip_smoke_kernels_line_carries_the_paged_k1_launches():
     paged["bodies"] = {"wgmma": 50, "simt": 0}
     names = ("packed_scan_v3", "packed_scan", "packed_scan_v2", "bin_scan")
     args = (r6, _path("packed_scan_v3"), r8, dict.fromkeys(names, 0.001),
-            dict.fromkeys(names, {}), dict.fromkeys(names, 7), "lib.so")
+            dict.fromkeys(names, {}), dict.fromkeys(names + ("level2_select",), 7), "lib.so")
     k1 = cs.kernel_entries(*args, paged=paged)[0]
     before = cs.kernel_entries(*args)[0]
     assert k1["name"] == "packed_scan_v3" and before["launches"] == 30
@@ -522,7 +541,7 @@ def test_chip_smoke_kernels_line_carries_the_mesh_launches():
                      bound_fp32_simt_ms=3.08, product_only_matmul_ms=5.6, launches=1,
                      bodies={"wgmma": 1, "simt": 0}, max_abs_err=0.002)}
     win = dict(ms=7.0, plain_ms=300.0, bound_ms=1.0, bound_by="operations",
-               product_only_matmul_ms=4.0)
+               product_only_matmul_ms=4.0, level2=_LEVEL2)
     r8 = dict(_path("packed_scan_v3"), window=win)
     shard = dict(win, ms=8.5, max_abs_err=0.03)
 
@@ -543,7 +562,7 @@ def test_chip_smoke_kernels_line_carries_the_mesh_launches():
                 partitioned_sharded=mesh_path("packed_scan_v3", 84))
     names = ("packed_scan_v3", "packed_scan", "packed_scan_v2", "bin_scan")
     args = (r6, _path("packed_scan_v3"), r8, dict.fromkeys(names, 0.001),
-            dict.fromkeys(names, {}), dict.fromkeys(names, 7), "lib.so")
+            dict.fromkeys(names, {}), dict.fromkeys(names + ("level2_select",), 7), "lib.so")
     before = cs.kernel_entries(*args)
     k1, k3e = cs.kernel_entries(*args, mesh=mesh)[:2]
     assert before[0]["launches"] == 30 and before[1]["launches"] == 10

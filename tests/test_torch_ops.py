@@ -167,3 +167,42 @@ def test_binned_stream_topk_matches_jax(W, kp, rounds):
     _same_where_finite(got[0].numpy(), got[1].numpy(),
                        np.asarray(want[0]), np.asarray(want[1]))
     np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+
+
+def test_level2_exhausted_bins_emit_inf_at_lane_0_as_jax():
+    """A bin whose finite members run out before ``rounds`` emits +inf at
+    payload 0 (0x7F800000), lane 0, col = b, every round after: the rule the
+    card's select copies bit for bit. Pinned on the port's plain reduce, and
+    against the JAX reference through every (score, id) pair it selects."""
+    B, W, rounds = 3, 5000, 8                 # 40 bins, 120 padding columns
+    bins2 = -(-W // 128)
+    rng = np.random.default_rng(41)
+    s = np.full((B, W), np.inf, np.float32)
+    finite = np.zeros((B, bins2), np.int64)
+    for b in range(bins2):                    # row 0: bin b has b % 10 finite
+        cols = [j * bins2 + b for j in range(b % 10) if j * bins2 + b < W]
+        s[0, cols] = rng.uniform(0, 10, len(cols))
+        finite[0, b] = len(cols)
+    s[2] = rng.uniform(0, 10, W)              # row 1 stays all +inf
+    finite[2] = [sum(j * bins2 + b < W for j in range(128)) for b in range(bins2)]
+    ids = (np.arange(W, dtype=np.int32)[None] + 10000 * np.arange(B, dtype=np.int32)[:, None])
+
+    d2, col, worst2 = ttopk.level2_select_plain(torch.from_numpy(s), rounds)
+    keys = d2.view(torch.int32).view(B, rounds, bins2).numpy()
+    col3 = col.view(B, rounds, bins2).numpy()
+    spent = np.arange(rounds)[None, :, None] >= finite[:, None, :]
+    assert spent[0].any() and spent[1].all() and not spent[2].any()
+    assert (keys[spent] == ttopk.INF_KEY).all()
+    assert (col3[spent] == np.broadcast_to(np.arange(bins2), col3.shape)[spent]).all()
+    assert (keys[~spent] < ttopk.INF_KEY).all()
+
+    kp = rounds * bins2                       # every slot, +inf ones too
+    got = ttopk.binned_stream_topk(torch.from_numpy(s), torch.from_numpy(ids), kp,
+                                   rounds=rounds)
+    want = jtopk.binned_stream_topk(jnp.asarray(s), jnp.asarray(ids), kp,
+                                    rounds=rounds, layout="axis1")
+    for q in range(B):
+        pairs = lambda sc, i: sorted(zip(np.asarray(sc)[q].tolist(), np.asarray(i)[q].tolist()))
+        assert pairs(got[0], got[1]) == pairs(want[0], want[1]), q
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+    np.testing.assert_array_equal(worst2.numpy(), np.asarray(want[2]))

@@ -2,7 +2,8 @@
 records nothing; on, every phase of a call is a span inside its parent
 under one ``search`` root, the routed packer has a span of its own, K1's
 launches and the rerun ladder's suspects are logged where the work
-happens, and the spans share the profiler's clock. The card-only case
+happens (the level-2 select's too), and the spans share the profiler's
+clock. The card-only case
 (marked ``cuda``) checks that the tracer adds no synchronisation:
 
     python -m pytest --noconftest -m cuda tests/test_torch_tracing.py
@@ -166,6 +167,32 @@ def test_k1_launch_log_equals_what_each_launch_ran(setup, monkeypatch):
     assert len({c["rows"] for c in logged}) > 1
 
 
+def test_level2_select_is_counted_under_a_tracer_and_runs_plain_on_cpu():
+    """The select's counter names what ran (B, W, rounds, layout and body:
+    "plain" on the CPU, where no kernel launches) under the open span; with
+    no tracer nothing is kept; bad arguments raise."""
+    s = torch.from_numpy(np.random.default_rng(3).uniform(0, 9, (4, 5000)).astype(np.float32))
+    kernels.reset_launches()
+    kernels.level2_select(s, 8)
+    tracer = PhaseTimer("cpu", fence=False)
+    with recording(tracer), maybe_phase(None, "batch/select"):
+        got = kernels.level2_select(s, 12, layout="lane")
+    want = kernels.plain["level2_select"](s, 12, "lane")
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert set(kernels.launches.values()) == {0}
+    program = tracer.export()
+    [c] = program["counters"]
+    assert {k: c[k] for k in ("name", "B", "W", "rounds", "layout", "body")} == dict(
+        name="level2_select", B=4, W=5000, rounds=12, layout="lane", body="plain")
+    [span] = program["spans"]
+    assert span["name"] == "batch/select" and c["span"] == span["id"]
+    for bad in (dict(rounds=0), dict(rounds=129), dict(rounds=8, layout="lanes")):
+        with pytest.raises(ValueError):
+            kernels.level2_select(s, **bad)
+    with pytest.raises(TypeError):
+        kernels.level2_select(s.double(), 8)
+
+
 def test_ladder_rows_are_the_suspects_it_was_given(setup, monkeypatch):
     _, eng, qs = setup
     given = []
@@ -263,7 +290,8 @@ def test_cli_profile_puts_the_search_span_around_its_aten_ops(tmp_path):
     ops = [e for e in events if e.get("cat") == "cpu_op"]
     assert ops and all(lo <= e["ts"] and e["ts"] + e["dur"] <= hi for e in ops)
     counters = {e["name"] for e in events if e.get("pid") == profiling.SPAN_PID and e["ph"] == "i"}
-    assert "k1_launch" in counters and counters <= {"k1_launch", "ladder_suspects"}
+    assert "k1_launch" in counters and counters <= {"k1_launch", "ladder_suspects",
+                                                    "level2_select"}
 
 
 @pytest.fixture
