@@ -8,8 +8,8 @@ Runs the cell with the control in the program's place once a seed, in one
 process, each run with its window and its check as ``run.py`` runs them,
 and prints one JSON line a seed: ``correct`` and each number beside its
 limit (the limits' upper readings). The benchmark's own runs never run
-it. Needs the card, as ``run.py`` does; the tests drive the same engine
-on the CPU.
+it. Needs the card, as ``run.py`` does, and sees the cell's cards alone,
+as ``run.py`` does; the tests drive the same engine on the CPU.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from hvq_bench import harness, reference, spec  # noqa: E402
+from hvq_bench import cards, harness, reference, spec  # noqa: E402
 
 
 class ControlEngine:
@@ -56,10 +56,17 @@ def main(argv=None) -> int:
     ap.add_argument("--seeds", required=True)
     ap.add_argument("--seconds", type=float, default=5.0)
     args = ap.parse_args(argv)
+    cell = spec.cell(args.workload)
+    # before CUDA is initialised: the driver reads the list once
+    if not cards.restrict(cell.chips):
+        print(f"{cell.name} asks for {cell.chips} cards, fewer are listed", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 2
-    cell = spec.cell(args.workload)
+    if torch.cuda.device_count() < cell.chips:
+        print(f"{cell.name} asks for {cell.chips} cards, fewer are present", file=sys.stderr)
+        return 2
     for seed in (int(s) for s in args.seeds.split(",")):
         t0 = time.perf_counter()
         out = harness.run(cell, seed, args.seconds, False, device="cuda", engine=ControlEngine)

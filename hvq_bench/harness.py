@@ -10,6 +10,11 @@ of the ids. One client, closed loop: the next call starts when the last
 returned, until the window's seconds have passed; the window ends with
 the last call.
 
+On the card a run covers the cell's own cards, ``cuda:0`` … of those
+visible (``cards.py``; ``run.py`` shows the process no others): each
+card's peak memory is reset before set-up and read after the window, and
+the run's synchronisations and fenced spans wait for every card.
+
 ``run`` works on any device; ``run.py`` is the command, which asks for
 the card.
 """
@@ -22,6 +27,7 @@ import time
 import numpy as np
 import torch
 
+from hvq_bench import cards as cell_cards
 from hvq_bench import spec, trace, traffic
 from hvq_bench.spec import Cell
 
@@ -131,10 +137,10 @@ def check(cell: Cell, seed: int, calls: Calls, q: dict, device) -> dict:
                 judged=judged, reruns_judged=reruns, failed=failed)
 
 
-def _free(device):
+def _free(cards):
     gc.collect()
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize()
+    if cards:
+        cell_cards.synchronize(cards)
         torch.cuda.empty_cache()
 
 
@@ -146,9 +152,8 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool, device="cuda",
     puts the reference there)."""
     t_start = time.perf_counter() if t_start is None else t_start
     device = torch.device(device)
-    cuda = device.type == "cuda"
-    if cuda:
-        torch.cuda.reset_peak_memory_stats(device)
+    cards = cell_cards.of(device, cell.chips)
+    cell_cards.reset_peaks(cards)
     cfg, tr = cell.config, cell.traffic
     traffic.check(tr)
     marks = {}
@@ -168,8 +173,7 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool, device="cuda",
         for i in range(int(tr["warmup_calls"])):
             _call(eng, q, tr, cfg, i, None, ladder_log)
         first = int(tr["warmup_calls"])
-        if cuda:
-            torch.cuda.synchronize(device)
+        cell_cards.synchronize(cards)
         marks["warmup_s"] = time.perf_counter() - t
         w0 = time.perf_counter()
         setup_s = w0 - t_start
@@ -184,19 +188,19 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool, device="cuda",
             window_s = end - w0
         else:
             prof_rec, launches = None, []
-            named = trace.Recorder(device, fence=False)
+            named = trace.Recorder(cards, fence=False)
             acts = [torch.profiler.ProfilerActivity.CPU]
-            if cuda:
+            if cards:
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
             n_prof, n_fenced = int(tr["trace_calls"]), int(tr["fenced_calls"])
             with trace.k1_launches(launches), torch.profiler.profile(activities=acts) as prof:
                 with torch.profiler.record_function(WINDOW):
                     for i in range(first, first + n_prof):
                         _call(eng, q, tr, cfg, i, calls, ladder_log, phases=named)
-                    if cuda:
-                        torch.cuda.synchronize(device)
+                    cell_cards.synchronize(cards)
             t = time.perf_counter()
-            prof_rec = trace.read_profile(prof, WINDOW, set(named.seconds))
+            prof_rec = trace.read_profile(prof, WINDOW, set(named.seconds),
+                                          [c.index for c in cards])
             del prof
             marks["profile_read_s"] = time.perf_counter() - t
             # the same calls again without the profiler, which slows the host:
@@ -206,22 +210,23 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool, device="cuda",
             for i in range(first, first + n_prof):
                 _call(eng, q, tr, cfg, i, calls, ladder_log)
             unprofiled_s = time.perf_counter() - t
-            fenced = trace.Recorder(device, fence=True)
+            fenced = trace.Recorder(cards, fence=True)
             for i in range(first + n_prof, first + n_prof + n_fenced):
                 _call(eng, q, tr, cfg, i, calls, ladder_log, phases=fenced)
             window_s = prof_rec["window_s"]
-    peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+    peaks = cell_cards.peaks(cards)
     last_route = dict(getattr(eng, "last_route", {}) or {})
     del eng
-    _free(device)
+    _free(cards)
     t = time.perf_counter()
     res = check(cell, seed, calls, q, device)
     marks["check_s"] = time.perf_counter() - t
     correct = all(v <= lim for v, lim in res["numbers"].values())
-    record = dict(rows=int(cfg["rows"]), setup_s=setup_s, window_s=window_s,
-                  calls=len(calls.index), queries=calls.queries(tr),
-                  walls_s=calls.walls, memory_peak_bytes=peak, marks=marks,
-                  last_route=last_route)
+    record = dict(rows=int(cfg["rows"]), chips=cell.chips, setup_s=setup_s, window_s=window_s,
+                  calls=len(calls.index), queries=calls.queries(tr), walls_s=calls.walls,
+                  files=[i % int(tr["pool_calls"]) for i in calls.index],
+                  memory_peak_bytes=max(peaks, default=0), memory_peak_bytes_by_card=peaks,
+                  marks=marks, last_route=last_route)
     if traced:
         record.update(
             spans=fenced.spans(), fenced_queries=n_fenced * int(tr["call_queries"]),

@@ -1,5 +1,8 @@
-"""card_bytes_per_row: the card's peak allocation over set-up and window per database row."""
+"""card_bytes_per_row: the fullest card's peak allocation over set-up and window per
+database row that one card serves."""
+
+from hvq_bench import readers
 
 
 def read(rec):
-    return rec["memory_peak_bytes"] / rec["rows"] if rec["memory_peak_bytes"] else None
+    return readers.card_bytes_per_row(rec)

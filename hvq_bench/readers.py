@@ -1,14 +1,19 @@
 """The readings the metric files share, each from a run's record.
 
 An end-to-end record (``--trace 0``) holds ``setup_s``, ``window_s``,
-``queries``, ``walls_s`` (one wall a call), ``memory_peak_bytes`` and
-``rows``. A traced record (``--trace 1``) holds ``spans`` (the fenced
-part's phases: {name: {"s", "n"}}), ``fenced_queries``, ``traced_calls``,
-``traced_queries``, ``suspects`` (the ladder's suspects a traced call),
-``profile`` (``trace.read_profile`` of the profiled part), ``unprofiled_s``
-(the wall of the profiled part's calls run once more without the
-profiler) and ``k1_launches``. Each reading is None where its record holds nothing to
-read.
+``queries``, ``walls_s`` (one wall a call), ``files`` (each call's file
+of the traffic's pool), ``rows``, ``chips`` (the cell's cards),
+``memory_peak_bytes_by_card`` (each card's peak allocation over set-up
+and window, in card order) and ``memory_peak_bytes`` (the fullest
+card's). A traced record (``--trace 1``) holds ``spans`` (the
+fenced part's phases: {name: {"s", "n"}}; a fence waits for every card),
+``fenced_queries``, ``traced_calls``, ``traced_queries``, ``suspects``
+(the ladder's suspects a traced call), ``profile`` (``trace.read_profile``
+of the profiled part: ``busy_s`` the union of every card's device
+intervals, ``busy_s_by_card`` each card's own union, in card order),
+``unprofiled_s`` (the wall of the profiled part's calls run once more
+without the profiler) and ``k1_launches``. Each reading is None where its
+record holds nothing to read.
 """
 
 from __future__ import annotations
@@ -16,6 +21,14 @@ from __future__ import annotations
 import sys
 
 from hvq_bench import stats
+
+
+def card_bytes_per_row(rec: dict):
+    """The fullest card's peak allocation over the rows one card serves
+    (``rows`` ÷ ``chips``, the database split evenly over the cards)."""
+    if not rec["memory_peak_bytes"]:
+        return None
+    return rec["memory_peak_bytes"] / (rec["rows"] / rec["chips"])
 
 
 def span_us_per_query(rec: dict, name: str):

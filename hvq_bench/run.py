@@ -10,6 +10,10 @@ its limit, which also close standard error. Exits non-zero with no result
 without a CUDA card, with fewer cards than the cell asks for, or when a
 JAX module or a module the benchmark must not load is loaded once the
 window has closed.
+
+Before CUDA is initialised the process is shown the cell's cards alone:
+the first ``chips`` of those visible, or of an existing
+``CUDA_VISIBLE_DEVICES`` list (``cards.select``).
 """
 
 import time
@@ -46,15 +50,19 @@ def banned_modules() -> list[str]:
                   or any(name == p or name.startswith(p + ".") for p in BANNED_PREFIX))
 
 
-def card_line() -> str:
-    """``nvidia-smi``'s name and power limit of the card, or ""."""
+def card_line(visible: str) -> str:
+    """``nvidia-smi``'s name and power limit of each card that ``visible``
+    lists (by index or UUID), joined by "; ", or ""."""
     try:
         out = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            ["nvidia-smi", "--query-gpu=index,uuid,name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True, timeout=30)
     except (OSError, subprocess.TimeoutExpired):
         return ""
-    return out.stdout.strip().splitlines()[0] if out.stdout.strip() else ""
+    wanted = set(visible.split(","))
+    lines = [[f.strip() for f in line.split(",")] for line in out.stdout.splitlines()]
+    return "; ".join(", ".join(f[2:]) for f in lines
+                     if len(f) >= 4 and (f[0] in wanted or f[1] in wanted))
 
 
 def main(argv=None) -> int:
@@ -65,11 +73,21 @@ def main(argv=None) -> int:
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
     args = ap.parse_args(argv)
 
-    import torch
-
-    from hvq_bench import harness, spec, stats
+    from hvq_bench import cards, spec
 
     cell = spec.cell(args.workload)
+    listed = os.environ.get(cards.ENV)
+    if not cards.restrict(cell.chips):
+        print(f"{cell.name} asks for {cell.chips} cards, {cards.ENV}={listed!r} lists fewer",
+              file=sys.stderr)
+        return 2
+    visible = os.environ[cards.ENV]
+    print(f"cards: {cards.ENV}={visible} (was {listed!r})", file=sys.stderr)
+
+    import torch
+
+    from hvq_bench import harness, stats
+
     if not torch.cuda.is_available():
         print("no CUDA device: the benchmark runs only on the card", file=sys.stderr)
         return 2
@@ -92,7 +110,9 @@ def main(argv=None) -> int:
               "device": device}
     if traced:
         prof = rec["profile"]
-        device.update(busy_s=prof["busy_s"], window_s=prof["window_s"])
+        # averaged over the cell's cards; the union over them stays in the record
+        by_card = prof["busy_s_by_card"]
+        device.update(busy_s=sum(by_card) / len(by_card), window_s=prof["window_s"])
         result["breakdown"] = {
             "device_ops": [[name, s] for name, s in prof["device_ops"][:10]],
             "idle_gaps": [[name, s] for name, s in prof["idle_gaps"][:10]],
@@ -101,7 +121,14 @@ def main(argv=None) -> int:
     walls = rec["walls_s"]
     half = len(walls) // 2
     print(json.dumps({
-        "cell": cell.name, "seed": args.seed, "card": card_line(), "calls": rec["calls"],
+        "cell": cell.name, "seed": args.seed, "card": card_line(visible),
+        "visible_cards": torch.cuda.device_count(),
+        "memory_peak_bytes_by_card": rec["memory_peak_bytes_by_card"],
+        "busy_s_by_card": rec["profile"]["busy_s_by_card"] if traced else None,
+        "busy_s_union": rec["profile"]["busy_s"] if traced else None,
+        "calls": rec["calls"],
+        "file_p50_ms": {f: 1e3 * stats.percentile([w for w, g in zip(walls, rec["files"]) if g == f],
+                                                  0.5) for f in sorted(set(rec["files"]))},
         "window_s": rec["window_s"], "setup_marks": rec["marks"],
         "wall_ms": {f"p{int(100 * p)}": 1e3 * stats.percentile(walls, p)
                     for p in (0.1, 0.25, 0.5, 0.75, 0.9, 0.99)} if walls else {},

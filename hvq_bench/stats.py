@@ -45,6 +45,16 @@ def busy_union(intervals, lo: float, hi: float):
     return busy, gaps
 
 
+def busy_by_card(intervals, lo: float, hi: float, cards) -> list:
+    """Each card's busy length in the window [lo, hi]: the union of the
+    ``intervals`` [(start, end, card)] on card ``c``, for each ``c`` of
+    ``cards`` in order. Each is at most the union over all cards, and
+    together they are at least that union: they add up to it only where
+    no two cards were busy at once."""
+    return [busy_union([(a, b) for a, b, card in intervals if card == c], lo, hi)[0]
+            for c in cards]
+
+
 def packed_scan_bytes(B: int, rows: int, W: int, plane_bytes: int) -> int:
     """Bytes a packed bin scan must move: each scanned row's 100 data lanes
     of ``plane_bytes`` (not the zero lanes a plane pads its rows with) and

@@ -81,10 +81,38 @@ def test_readers_on_a_traced_record():
         profile=dict(rec["profile"], device_events=0))) is None
 
 
+def test_busy_by_card():
+    iv = [(1, 3, 0), (2, 4, 1), (6, 7, 0), (9, 12, 3), (-5, 0, 2), (3.5, 5, 2)]
+    union, _ = stats.busy_union([(a, b) for a, b, _ in iv], 0, 10)
+    assert union == 3 + 1 + 1 + 1         # [1, 5), [6, 7), [9, 10)
+    # one card: its union is the union, to the last bit
+    one = [(a, b, 0) for a, b, _ in iv]
+    assert stats.busy_by_card(one, 0, 10, [0]) == [union]
+    # four cards: [1, 3) ∪ [6, 7); [2, 4); [3.5, 5) (and one before the window); [9, 10)
+    by_card = stats.busy_by_card(iv, 0, 10, [0, 1, 2, 3])
+    assert by_card == [3, 2, 1.5, 1]
+    assert all(b <= union for b in by_card) and sum(by_card) >= union
+    # a card of the cell with nothing on it reads 0; one outside the cell is not read
+    assert stats.busy_by_card(iv, 0, 10, [1, 5]) == [2, 0]
+
+
+def test_card_bytes_per_row_on_one_and_four_cards():
+    one = dict(rows=10_000_000, chips=1, memory_peak_bytes=19_588_000_000,
+               memory_peak_bytes_by_card=[19_588_000_000])
+    assert readers.card_bytes_per_row(one) == 1958.8
+    # four cards serve 10⁷ rows each: the fullest card's peak over its rows
+    by_card = [47_000_000_000, 21_000_000_000, 21_000_000_000, 20_500_000_000]
+    four = dict(rows=40_000_000, chips=4, memory_peak_bytes=max(by_card),
+                memory_peak_bytes_by_card=by_card)
+    assert readers.card_bytes_per_row(four) == 4700.0
+    assert readers.card_bytes_per_row(dict(four, memory_peak_bytes=0)) is None
+
+
 def test_end_to_end_readers():
     rec = dict(setup_s=12.5, window_s=10.0, queries=500_000,
                walls_s=[0.001 * x for x in range(1, 101)],
-               memory_peak_bytes=2_000_000_000, rows=1_000_000)
+               memory_peak_bytes=2_000_000_000, memory_peak_bytes_by_card=[2_000_000_000],
+               rows=1_000_000, chips=1)
     names = [m["name"] for m in json.loads((ROOT / "BENCHMARK.json").read_text())["end_to_end"]]
     read = {name: spec.load_module("metrics", name).read(rec) for name in names}
     want = {"card_bytes_per_row": 2000.0, "setup_s": 12.5}

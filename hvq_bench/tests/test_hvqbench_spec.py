@@ -42,11 +42,25 @@ def test_config_resolves(cfg):
     assert any(w["config"] == cfg["name"] for w in SPEC["workloads"])
 
 
+def check_cell_entry(w: dict) -> None:
+    """A ``workloads`` entry's shape: its keys, names, cards (one or four)
+    and a one-line ``why``."""
+    assert set(w) == {"name", "config", "traffic", "chips", "why"}
+    assert NAME.match(w["name"]) and NAME.match(w["config"]) and NAME.match(w["traffic"])
+    assert w["chips"] in (1, 4) and 1 <= len(w["why"]) <= 200 and "\n" not in w["why"]
+
+
+def four_card_cells_allowed(workloads: list) -> bool:
+    """At most a quarter of the cells, rounded down, ask for four cards;
+    one always may."""
+    fours = sum(w["chips"] == 4 for w in workloads)
+    return fours <= max(1, len(workloads) // 4)
+
+
 @pytest.mark.parametrize("name", CELLS)
 def test_cell_resolves_and_reports(name):
     w = next(w for w in SPEC["workloads"] if w["name"] == name)
-    assert set(w) == {"name", "config", "traffic", "chips", "why"}
-    assert NAME.match(w["traffic"]) and w["chips"] == 1 and len(w["why"]) <= 200
+    check_cell_entry(w)
     cell = spec.cell(name)
     traffic.check(cell.traffic)
     e2e = [m["name"] for m in cell.end_to_end]
@@ -83,3 +97,24 @@ def test_names_unique_and_layers_consistent():
     for m in SPEC["per_layer"]:
         if m["name"].startswith(("k1_", "device_idle")):
             assert m["source"] == "device_trace"
+
+
+def _cells(chips: list) -> list:
+    return [{"name": f"c{i}", "config": "sigmod-10m", "traffic": f"t{i}", "chips": n,
+             "why": "a cell"} for i, n in enumerate(chips)]
+
+
+def test_a_four_card_cell_entry_passes():
+    w = _cells([4])[0]
+    check_cell_entry(w)
+    with pytest.raises(AssertionError):
+        check_cell_entry(dict(w, chips=2))
+
+
+def test_four_card_cells_within_the_limit():
+    assert four_card_cells_allowed(SPEC["workloads"])
+    assert four_card_cells_allowed(_cells([4]))                       # one always may
+    assert four_card_cells_allowed(_cells([1, 1, 1, 4]))              # a quarter of four
+    assert not four_card_cells_allowed(_cells([1, 1, 4, 4]))          # two among four
+    assert four_card_cells_allowed(_cells([1] * 6 + [4, 4]))          # two among eight
+    assert not four_card_cells_allowed(_cells([1] * 8 + [4, 4, 4]))   # 11 // 4 = 2

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from hvq_bench import stats
+from hvq_bench.cards import synchronize
 
 # K1 on the device, by the names its two bodies compile to
 # (csrc/packed_scan_v3.cu: the tensor-core body in the Axis1 layout, and
@@ -33,18 +34,18 @@ class Recorder:
     calls ``phases.phase(name)``): accumulates wall seconds and counts per
     name and opens ``torch.profiler.record_function(name)``, so the
     profile's idle gaps carry the host phase's name. ``fence=True``
-    synchronises the device at both ends of a phase, as the program's
-    ``PhaseTimer`` does; ``fence=False`` only names the phases."""
+    synchronises each of ``cards`` (the cell's CUDA devices) at both ends
+    of a phase, as the program's ``PhaseTimer`` does its one device, so a
+    fenced span holds all the work it enqueued on any card;
+    ``fence=False`` only names the phases."""
 
-    def __init__(self, device, fence: bool = True):
-        self.device = torch.device(device)
-        self.fence = fence and self.device.type == "cuda"
+    def __init__(self, cards, fence: bool = True):
+        self.cards = list(cards) if fence else []
         self.seconds: dict = defaultdict(float)
         self.counts: dict = defaultdict(int)
 
     def _sync(self):
-        if self.fence:
-            torch.cuda.synchronize(self.device)
+        synchronize(self.cards)
 
     @contextlib.contextmanager
     def phase(self, name: str):
@@ -152,11 +153,13 @@ def _name_gaps(gaps, cpu_events, phases: set, top: int = 200) -> dict:
     return dict(named)
 
 
-def read_profile(prof, window_name: str, phases: set) -> dict:
+def read_profile(prof, window_name: str, phases: set, cards) -> dict:
     """The profiled part's record: its wall (the ``window_name`` range),
     the device's busy seconds (the union of kernel, copy and set
-    intervals), its idle gaps by host activity, device time by kernel name
-    and K1's device seconds and launches."""
+    intervals over every card) and each card's (``busy_s_by_card``: the
+    union of the intervals on each device index of ``cards``, in order),
+    its idle gaps by host activity, device time by kernel name and K1's
+    device seconds and launches."""
     events = prof.events()
     win = next((e for e in events if e.name == window_name), None)
     if win is None:
@@ -165,6 +168,8 @@ def read_profile(prof, window_name: str, phases: set) -> dict:
     dev = _device_events(events, phases | {window_name})
     busy_us, gaps = stats.busy_union(
         [(e.time_range.start, e.time_range.end) for e in dev], lo, hi)
+    by_card = stats.busy_by_card(
+        [(e.time_range.start, e.time_range.end, e.device_index) for e in dev], lo, hi, cards)
     thread = win.thread
     cpu = [e for e in events if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA
            and e.thread == thread and e.name != window_name]
@@ -177,7 +182,9 @@ def read_profile(prof, window_name: str, phases: set) -> dict:
             k1_us += d
             k1_n += 1
     return dict(
-        window_s=(hi - lo) / 1e6, busy_s=busy_us / 1e6, device_events=len(dev),
+        window_s=(hi - lo) / 1e6, busy_s=busy_us / 1e6,
+        busy_s_by_card=[us / 1e6 for us in by_card],
+        device_events=len(dev),
         device_ops=sorted(by_name.items(), key=lambda kv: -kv[1]),
         idle_gaps=sorted(_name_gaps(gaps, cpu, phases).items(), key=lambda kv: -kv[1]),
         k1_device_s=k1_us / 1e6, k1_kernels=k1_n,
