@@ -103,9 +103,10 @@ Phases, in order; any failure exits non-zero with a traceback:
    same checks, K3 at the shard's shape, held to phase 4's streaming
    answer;
 9c. ``partitioned_sharded`` over phase 6's rows on the bf16 plane with
-   phase 7's 4·10⁴ queries, 4 virtual shards: a warm-up (the time view),
-   the timed search (K1 = 4 × (full batches + rung-1 runs), no windowed
-   batch, routed groups homed to their shards, straddling spans dense),
+   phase 7's 4·10⁴ queries, 4 virtual shards: a warm-up (the time view,
+   dealt tile by tile), the timed search (K1 = 4 × (full + windowed
+   batches + rung-1 runs), routed groups homed to their shards, straddling
+   spans and narrow type-2 spans dense),
    a fenced phase run, recall and ``.dist`` on the oracle queries, and
    every query within 0.002 of phase 7's partitioned answer; each mesh
    phase prints its peak of card memory and frees its engine;
@@ -1552,8 +1553,9 @@ def path_partitioned_sharded(ds, qs6, ref, partitioned_ids,
     log(f"[{tag}] warm-up search {time.perf_counter() - t0:.1f} s (time view built in "
         f"{eng.index.build_seconds.get('time_view', float('nan')):.1f} s); "
         f"route {json.dumps(eng.last_route)}")
-    planes = [v.scan_V for mv in eng._placed.values() for v in mv.shards]
-    assert len({p.untyped_storage().data_ptr() for p in planes}) == len(eng._placed)
+    views = [eng.index.cat_view, eng.index.time_view]
+    planes = [v.scan_V for mv in views for v in mv.shards]
+    assert len({p.untyped_storage().data_ptr() for p in planes}) == len(views)
     peak_gb(tag)
     reset_counts()
     t0 = time.perf_counter()
@@ -1568,10 +1570,11 @@ def path_partitioned_sharded(ds, qs6, ref, partitioned_ids,
         f"the search's peak of card memory {search_peak:.3f} GB")
     want = want_level2_launches()
     want["packed_scan_v3"] = MESH_SHARDS * (route["full_batches"]
+                                            + sum(route["windowed_batches"].values())
                                             + route["ladder"].get("rung1_runs", 0))
     assert launches == want, (launches, want)
     assert bodies == {"wgmma": want["packed_scan_v3"], "simt": 0}, bodies
-    assert route["windowed"] == 0 and not route["windowed_batches"], route
+    assert route["windowed"] > 0 and route["routed_time"] == 0, route
     assert sum(route["routed_groups"].values()) >= 1, route
     assert ids.shape == (qs.m, 100) and np.isfinite(dists).all() and (ids < ds.n).all()
     phases = PhaseTimer(device=DEV)
@@ -1725,6 +1728,7 @@ def path_repair(ds, qs6, ref, db6, index7, answers: dict, bases: dict) -> dict:
             f"D=1e+07 bf16 partitioned_sharded {MESH_SHARDS} repaired", eng, ds, qs7, ref,
             answers["partitioned_sharded"], bases["partitioned_sharded"],
             lambda e, lad: MESH_SHARDS * (e.last_route["full_batches"]
+                                          + sum(e.last_route["windowed_batches"].values())
                                           + lad.get("rung1_runs", 0)), route_ladder, qs7)
         del eng
         torch.cuda.empty_cache()

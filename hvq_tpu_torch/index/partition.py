@@ -27,7 +27,8 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from typing import Optional
+import warnings
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -35,15 +36,17 @@ import torch
 from hvq_tpu_torch import constants as _c
 from hvq_tpu_torch.utils.formats import Dataset
 from hvq_tpu_torch.models.device_db import (
+    PinnedStaging,
     resolve_device,
     storage_dtype,
     upload,
+    upload_async,
     upload_scan_plane,
 )
 
-# Row chunks of the on-device permutation gather: the temporary of one
-# chunk is 1/8 of the database, so the peak is source + output.
-_GATHER_CHUNKS = 8
+# Rows of one host gather and device copy while a view is built (52 MB of
+# 100-lane fp32 rows).
+_STAGE_ROWS = 1 << 17
 
 
 @dataclasses.dataclass
@@ -90,6 +93,26 @@ class SortedView:
                    for t in (self.Vp, self.V_scan, self.C, self.T,
                              self.d_norms, self.oid) if t is not None)
 
+    @property
+    def device_nbytes(self) -> int:
+        """The most bytes of the view that one device holds: all of them."""
+        return self.nbytes
+
+    @property
+    def row_dtype(self) -> torch.dtype:
+        """The rows' storage dtype (``Vp``)."""
+        return self.Vp.dtype
+
+    @property
+    def bf16_scan(self) -> bool:
+        """Whether the view carries the bf16 scan plane."""
+        return self.V_scan is not None
+
+    @property
+    def dn_max(self) -> float:
+        """The largest ‖d‖² of the view (one device sync)."""
+        return float(self.d_norms.max())
+
     @classmethod
     def from_arrays(cls, src, device: torch.device | str = "cuda") -> "SortedView":
         """A view from arrays another engine already laid out.
@@ -126,7 +149,119 @@ class SortedView:
                    n=n, db_tile=db_tile, V_scan=scan)
 
 
-def _build_view(
+def stable_argsort(keys: np.ndarray) -> np.ndarray:
+    """``np.argsort(keys, kind="stable")`` as int64. Float32 keys (no NaN)
+    go through one sort of unique uint64 words: each key's bits made
+    order-preserving (negatives flipped, the sign bit set on the rest, −0
+    as +0) above its index, several times faster than the stable sort at
+    10⁷ rows and more; other keys through the stable sort itself."""
+    keys = np.asarray(keys)
+    if keys.dtype != np.float32 or keys.size >= 1 << 32:
+        return np.argsort(keys, kind="stable").astype(np.int64)
+    bits = (keys + np.float32(0)).view(np.uint32)
+    ordered = np.where(bits >> 31, ~bits, bits | np.uint32(1 << 31)).astype(np.uint64)
+    words = (ordered << np.uint64(32)) | np.arange(keys.size, dtype=np.uint64)
+    words.sort()
+    return (words & np.uint64(0xFFFFFFFF)).astype(np.int64)
+
+
+def cat_order(ds: Dataset) -> np.ndarray:
+    """The (C, T)-sorted view's row order: ``np.lexsort((ds.T, ds.C))``
+    (C major, T minor, ties in file order) as two stable sorts."""
+    by_t = stable_argsort(ds.T)
+    return by_t[stable_argsort(np.asarray(ds.C)[by_t])]
+
+
+def row_bytes(scan_store: str = "fp32", dtype=torch.float32) -> int:
+    """Device bytes of one view row: the rows at 128 lanes in ``dtype``,
+    the bf16 scan plane where ``scan_store`` is ``"bf16"``, and C, T, ‖d‖²
+    and oid."""
+    size = torch.empty(0, dtype=storage_dtype(dtype)).element_size()
+    return _c.PADDED_DIM * (size + (2 if scan_store == "bf16" else 0)) + 16
+
+
+def view_keys(ds: Dataset, perm: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """The host sort keys (C_key, T_key) of the view of ``ds`` in the row
+    order ``perm``."""
+    return (np.ascontiguousarray(ds.C[perm], np.float32),
+            np.ascontiguousarray(ds.T[perm], np.float32))
+
+
+def build_rows(
+    ds: Dataset,
+    perm: np.ndarray,
+    positions: np.ndarray,
+    db_tile: int,
+    device: torch.device,
+    scan_store: str = "fp32",
+    dtype=torch.float32,
+    keys: tuple[np.ndarray, np.ndarray] | None = None,
+) -> SortedView:
+    """The rows at ``positions`` of the view of ``ds`` in the row order
+    ``perm``, in that order, on ``device``: a SortedView of
+    ``len(positions)`` rows whose host keys (``keys``, default
+    :func:`view_keys`) are the whole view's. A position ≥ n is a padding
+    row (zero vector, C and T +inf, oid n). The rows are stored in
+    ``dtype`` (fp32, or bf16 for the uncertified storage of
+    ``dtype=torch.bfloat16``).
+
+    Only these rows reach the device: the host gathers them in view order,
+    ``_STAGE_ROWS`` at a time, into two pinned buffers in turn, and each
+    chunk's copy is started without waiting for it (``PinnedStaging``), so
+    the host gathers the next chunk while the device copies one; nothing
+    here waits for the device, so a mesh's cards finish their copies
+    while the host gathers the next card's rows. The padding to 128 lanes,
+    the norms and the bf16 plane are made on the device, so the peak is
+    the view plus a chunk. ``d_norms`` come from the fp32 rows before any
+    bf16 cast.
+    """
+    if scan_store not in ("fp32", "bf16"):
+        raise ValueError(f"unknown scan_store {scan_store!r}")
+    dtype = storage_dtype(dtype)
+    if scan_store == "bf16" and dtype != torch.float32:
+        raise ValueError("scan_store='bf16' needs fp32 primary storage")
+    n, dim = ds.V.shape
+    C_key, T_key = keys if keys is not None else view_keys(ds, perm)
+    positions = np.asarray(positions, np.int64)
+    rows = positions.shape[0]
+    dest = np.flatnonzero(positions < n)            # this block's real rows
+    src = perm[positions[dest]]                     # their original rows
+    with warnings.catch_warnings():     # a read-only array is only read here
+        warnings.simplefilter("ignore", UserWarning)
+        V_host = torch.from_numpy(np.ascontiguousarray(ds.V, np.float32))
+    Vp = torch.zeros((rows, _c.PADDED_DIM), dtype=torch.float32, device=device)
+    d_norms = torch.zeros(rows, dtype=torch.float32, device=device)
+    stages = [PinnedStaging(_STAGE_ROWS, dim, device) for _ in range(2)]
+    # runs of consecutive destination rows, each filled chunk by chunk
+    cuts = np.r_[0, np.flatnonzero(np.diff(dest) != 1) + 1, dest.size]
+    turn = 0
+    for k0, k1 in zip(cuts[:-1].tolist(), cuts[1:].tolist()):
+        for s in range(k0, k1, _STAGE_ROWS):
+            e = min(k1, s + _STAGE_ROWS)
+            g = stages[turn].gather(V_host, src[s:e])
+            turn ^= 1
+            d0 = int(dest[s])
+            Vp[d0 : d0 + e - s, :dim] = g
+            d_norms[d0 : d0 + e - s] = (g * g).sum(dim=1)
+            del g
+    if dtype != torch.float32:
+        Vp = Vp.to(dtype)
+    V_scan = Vp.to(torch.bfloat16) if scan_store == "bf16" else None
+
+    def column(keyed, fill):
+        out = np.full(rows, fill, dtype=keyed.dtype)
+        out[dest] = keyed
+        return upload_async(out, device)
+
+    return SortedView(
+        Vp=Vp, C=column(C_key[positions[dest]], np.float32(np.inf)),
+        T=column(T_key[positions[dest]], np.float32(np.inf)), d_norms=d_norms,
+        oid=column(src.astype(np.int32), np.int32(n)),
+        C_key=C_key, T_key=T_key, n=n, db_tile=db_tile, V_scan=V_scan,
+    )
+
+
+def build_view(
     ds: Dataset,
     perm: np.ndarray,
     db_tile: int,
@@ -135,61 +270,35 @@ def _build_view(
     n_pad: int | None = None,
     dtype=torch.float32,
 ) -> SortedView:
-    """The view of ``ds`` in the row order ``perm``, padded to ``n_pad``
-    rows (default: whole tiles), its rows stored in ``dtype`` (fp32, or
-    bf16 for the uncertified storage of ``dtype=torch.bfloat16``).
-
-    The raw vectors are uploaded (pinned) in original row order; the
-    permutation gather, the padding and the norms run on the device,
-    in ``_GATHER_CHUNKS`` row chunks into one preallocated zeroed output,
-    so the peak is the source plus the output (the JAX comment at
-    ``partition.py:131-138`` explains why a fused gather is not used).
-    Columns are padded to 128 lanes, rows to a multiple of ``db_tile``;
-    ``d_norms`` come from the fp32 rows before any bf16 cast.
-    """
-    if scan_store not in ("fp32", "bf16"):
-        raise ValueError(f"unknown scan_store {scan_store!r}")
-    dtype = storage_dtype(dtype)
-    if scan_store == "bf16" and dtype != torch.float32:
-        raise ValueError("scan_store='bf16' needs fp32 primary storage")
-    n, dim = ds.V.shape
+    """The whole view of ``ds`` in the row order ``perm`` on one device,
+    padded to ``n_pad`` rows (default: whole tiles): :func:`build_rows` of
+    every position. Columns are padded to 128 lanes, rows to a multiple of
+    ``db_tile``."""
+    n = ds.V.shape[0]
     if n_pad is None:
         n_pad = -(-n // db_tile) * db_tile
-    V_dev = upload(np.asarray(ds.V, np.float32), device)
-    idx = upload(perm.astype(np.int64), device)
-    Vp = torch.zeros((n_pad, _c.PADDED_DIM), dtype=torch.float32, device=device)
-    d_norms = torch.zeros(n_pad, dtype=torch.float32, device=device)
-    bounds = np.linspace(0, n, _GATHER_CHUNKS + 1).astype(np.int64)
-    for s, e in zip(bounds[:-1].tolist(), bounds[1:].tolist()):
-        g = V_dev.index_select(0, idx[s:e])
-        Vp[s:e, :dim] = g
-        d_norms[s:e] = (g * g).sum(dim=1)
-        del g
-    del V_dev, idx
-    if dtype != torch.float32:
-        Vp = Vp.to(dtype)
-    V_scan = Vp.to(torch.bfloat16) if scan_store == "bf16" else None
-
-    def _pad(a, fill):
-        out = np.full(n_pad, fill, dtype=a.dtype)
-        out[:n] = a
-        return upload(out, device)
-
-    C_key = np.ascontiguousarray(ds.C[perm], np.float32)
-    T_key = np.ascontiguousarray(ds.T[perm], np.float32)
-    view = SortedView(
-        Vp=Vp, C=_pad(C_key, np.float32(np.inf)),
-        T=_pad(T_key, np.float32(np.inf)), d_norms=d_norms,
-        oid=_pad(perm.astype(np.int32), np.int32(n)),
-        C_key=C_key, T_key=T_key, n=n, db_tile=db_tile, V_scan=V_scan,
-    )
+    view = build_rows(ds, perm, np.arange(n_pad), db_tile, device,
+                      scan_store=scan_store, dtype=dtype)
     if device.type == "cuda":
         torch.cuda.synchronize(device)    # build times are device times
     return view
 
 
+def place_on(device: torch.device):
+    """The placement of a whole view on one device: ``place(ds, perm,
+    vid, **kw)`` → :func:`build_view` (``vid``: 0 the cat view, 1 the
+    time view)."""
+    def place(ds, perm, vid, **kw):
+        return build_view(ds, perm, device=device, **kw)
+    return place
+
+
 @dataclasses.dataclass
 class PartitionedIndex:
+    """The two sorted views and the host keys that route to them. A view
+    is a SortedView on one device, or what a placement (``_place``, see
+    :meth:`build`) made of it, e.g. a mesh engine's slabs."""
+
     cat_view: SortedView
     T_sorted: np.ndarray                    # (n,) globally sorted T keys
     _time_view: Optional[SortedView] = None
@@ -199,6 +308,9 @@ class PartitionedIndex:
     _dtype: torch.dtype = torch.float32
     # seconds of each build step: "sort", "cat_view", "time_view"
     build_seconds: dict = dataclasses.field(default_factory=dict)
+    # place(ds, perm, vid, db_tile=, scan_store=, n_pad=, dtype=) → view;
+    # None: the whole view on the cat view's device (place_on)
+    _place: Optional[Callable] = None
 
     @property
     def device(self) -> torch.device:
@@ -218,10 +330,11 @@ class PartitionedIndex:
                     "time view not materialized and lazy source unavailable"
                 )
             t0 = time.perf_counter()
-            perm = np.argsort(self._ds.T, kind="stable").astype(np.int64)
+            perm = stable_argsort(self._ds.T)
             # the cat view's rows: a mesh engine's row_multiple included
-            self._time_view = _build_view(
-                self._ds, perm, self._db_tile, self.device,
+            place = self._place or place_on(self.device)
+            self._time_view = place(
+                self._ds, perm, 1, db_tile=self._db_tile,
                 scan_store=self._scan_store, n_pad=self.cat_view.n_pad,
                 dtype=self._dtype,
             )
@@ -231,7 +344,8 @@ class PartitionedIndex:
     @classmethod
     def build(cls, ds: Dataset, db_tile: int = 8192,
               device: torch.device | str = "cuda", scan_store: str = "fp32",
-              row_multiple: int | None = None, dtype=torch.float32):
+              row_multiple: int | None = None, dtype=torch.float32,
+              place: Callable | None = None):
         """Sort on the host and build the cat view; the time view is built
         on first use (:attr:`time_view`), with the cat view's rows.
 
@@ -239,6 +353,9 @@ class PartitionedIndex:
         instead; the mesh engines need ``n_d · db_tile``, so every shard
         holds whole tiles of both views. ``dtype``: the views' row storage
         (``torch.bfloat16``: rounded rows, ‖d‖² from the fp32 ones).
+        ``place`` (default :func:`place_on` ``device``) builds each view
+        from its permutation, ``place(ds, perm, vid, db_tile=, scan_store=,
+        n_pad=, dtype=)``: a mesh engine's places it card by card.
 
         ``HVQ_PERM_CACHE=<path.npz>`` keeps the host sort products (the
         (C, T) permutation and ``T_sorted``) across processes; the device
@@ -257,7 +374,7 @@ class PartitionedIndex:
                 cat_perm = np.asarray(z["cat_perm"])
                 T_sorted = np.asarray(z["T_sorted"])
         if cat_perm is None:
-            cat_perm = np.lexsort((ds.T, ds.C)).astype(np.int64)  # C major, T minor
+            cat_perm = cat_order(ds)
             T_sorted = np.sort(ds.T).astype(np.float32)
             if pc:
                 tmp = f"{pc}.tmp{os.getpid()}"
@@ -267,12 +384,12 @@ class PartitionedIndex:
                 except OSError:
                     pass
         t1 = time.perf_counter()
+        place = place or place_on(device)
         out = cls(
-            cat_view=_build_view(ds, cat_perm, db_tile, device,
-                                 scan_store=scan_store,
-                                 n_pad=-(-ds.n // rm) * rm, dtype=dtype),
+            cat_view=place(ds, cat_perm, 0, db_tile=db_tile, scan_store=scan_store,
+                           n_pad=-(-ds.n // rm) * rm, dtype=dtype),
             T_sorted=T_sorted, _ds=ds, _db_tile=db_tile, _scan_store=scan_store,
-            _dtype=storage_dtype(dtype),
+            _dtype=storage_dtype(dtype), _place=place,
         )
         out.build_seconds.update(sort=t1 - t0, cat_view=time.perf_counter() - t1)
         return out

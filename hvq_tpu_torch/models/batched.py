@@ -296,7 +296,8 @@ class Slab(NamedTuple):
 
 def slab_scan(eng, slab: Slab, qb: common.QueryBatch, sn: int, kp: int,
               impl: str, bin_top: int | None, db_tile: int,
-              level2: bool = True, phases=None, k: int = _c.K_DEFAULT):
+              level2: bool = True, phases=None, k: int = _c.K_DEFAULT,
+              tile_index=None):
     """One query batch against one slab of rows, the per-shard stage of the
     mesh engines and the paged engine's per-window one → device (exact
     (B, ≤kp) fp32 with +inf empties, pos (B, ≤kp) int32 positions in the
@@ -307,7 +308,9 @@ def slab_scan(eng, slab: Slab, qb: common.QueryBatch, sn: int, kp: int,
     layout), ``"packed"`` the plain packed scan on ``slab.Vs`` in
     ``eng.scan_layout``, ``"deferred"`` the unpacked deferred bin scan on
     ``slab.Vp`` (lane bins), ``"stream"`` the streaming exact scan
-    (certified by construction). K1 and the plain packed scan take the
+    (certified by construction; ``tile_index``, the slab's tiles, scores
+    them many at a time, as ``common.scan_database`` says, and None tile by
+    tile). K1 and the plain packed scan take the
     in-program bin repair when the engine is certified with
     ``repair_bins`` > 0, as in the JAX engines, and K3 and the deferred
     scan never do: the repair reads the slab's own rows, the candidates
@@ -326,7 +329,7 @@ def slab_scan(eng, slab: Slab, qb: common.QueryBatch, sn: int, kp: int,
             scores, pos = common.scan_database(
                 slab.Vp, slab.C, slab.T, slab.dn, qb, sn, kprime=kp, db_tile=Dt,
                 precision=eng.precision, oid=slab.sid, strategy=eng.topk_strategy,
-                compute_dtype=eng.compute_dtype)
+                compute_dtype=eng.compute_dtype, tile_index=tile_index)
     else:
         args = (slab.C, slab.T, slab.dn, slab.sid, qb.qV, *qb[1:], sn)
         kw = dict(db_tile=Dt, bin_top=bin_top)

@@ -76,8 +76,9 @@ class PinnedStaging:
     host → device copies, pinned when it is bound for a CUDA device.
 
     :meth:`upload` copies a host slab (a slice of an ``np.memmap`` too)
-    into the buffer once and starts the device copy without waiting for
-    it. Before the buffer is written again, the next call waits on an
+    into the buffer once, :meth:`gather` gathers host rows into it, and
+    each starts the device copy without waiting for it. Before the buffer
+    is written again, the next call waits on an
     event recorded after the last copy, so a copy never reads a buffer
     that is being overwritten. The buffer is allocated at first use.
     """
@@ -95,12 +96,34 @@ class PinnedStaging:
             raise ValueError(f"{host.shape} does not fit the staging buffer {self.shape}")
         if self.device.type != "cuda":
             return torch.from_numpy(np.array(host, np.float32))
+        stage = self._free(r)
+        stage.numpy()[:] = host
+        return self._send(stage)
+
+    def gather(self, src: torch.Tensor, idx: np.ndarray) -> torch.Tensor:
+        """Rows ``idx`` of the host fp32 tensor ``src`` (r, cols) → a (r,
+        cols) device tensor, gathered straight into the buffer by the
+        host's threads."""
+        r = idx.shape[0]
+        if r > self.shape[0] or src.shape[1:] != self.shape[1:]:
+            raise ValueError(f"{r} rows of {tuple(src.shape)} do not fit the staging "
+                             f"buffer {self.shape}")
+        rows = torch.from_numpy(np.ascontiguousarray(idx, np.int64))
+        if self.device.type != "cuda":
+            return src.index_select(0, rows)
+        stage = self._free(r)
+        torch.index_select(src, 0, rows, out=stage)
+        return self._send(stage)
+
+    def _free(self, r: int) -> torch.Tensor:
+        """The buffer's first ``r`` rows, once the last copy has read them."""
         if self._buf is None:
             self._buf = torch.empty(self.shape, dtype=torch.float32, pin_memory=True)
         if self._copied is not None:
-            self._copied.synchronize()      # the last copy has read the buffer
-        stage = self._buf[:r]
-        stage.numpy()[:] = host
+            self._copied.synchronize()
+        return self._buf[:r]
+
+    def _send(self, stage: torch.Tensor) -> torch.Tensor:
         out = stage.to(self.device, non_blocking=True)
         self._copied = torch.cuda.Event()
         self._copied.record(torch.cuda.current_stream(self.device))

@@ -1,11 +1,25 @@
 """Sharded partitioned engine: the counterpart of
 ``hvq_tpu.models.partitioned_sharded``.
 
-Both sorted views are built with ``row_multiple = n_d · db_tile`` and split
-over the mesh's "d" axis (q = 1), one contiguous slab of each view a shard
-(``parallel.mesh.shard_rows``: views of one copy where shards share a
-device). Each of the partitioned engine's dispatch kinds runs where its
-rows live:
+Both sorted views are split over the mesh's "d" axis (q = 1), rows padded
+to ``row_multiple = n_d · db_tile`` so that every shard holds whole tiles.
+Each view is built and held card by card (``_place``): the host sorts
+once, each device receives only the rows it holds and gathers, pads and
+norms them itself (``index.partition.build_rows``), and shards that share
+a device share one block of rows. No tensor of a whole view exists on any
+device: a :class:`MeshView` is the whole view's host keys and sizes and
+one slab a shard.
+
+* The cat view ((C, T)-sorted) lies in contiguous slabs: a routed group
+  (one category's rows) lives inside one slab.
+* The time view (T-sorted) is dealt tile by tile (``parallel.mesh.
+  deal_rows``): tile t on shard t mod n_d, at local tile t div n_d. A
+  start-sorted batch of wide type-2 queries nearly always reaches the
+  view's end, so in contiguous slabs every window would fall on the last
+  card; dealt, any window of whole tiles is a contiguous range of local
+  tiles on every shard, split evenly over them.
+
+Each of the partitioned engine's dispatch kinds runs where its rows live:
 
 * **full** (dense): the shared per-slab stage (``models.batched.slab_scan``)
   on every slab's scan plane, K1 on a card, with the slab's ``oid`` as the
@@ -13,14 +27,19 @@ rows live:
   and turned into ORIGINAL ids there, so the shards' (B, k′) tiles merge
   (``parallel.collectives``) with unique ids and no cross-shard row
   gather; each certificate term takes its minimum over the shards.
-* **routed**: a routed group's window lies inside one shard's slab: spans
-  that straddle a slab boundary go dense (``_routable_extra``), and the
-  groups are packed per slab and dispatched on the shard that owns them,
-  the shards' queues drained round-robin. Each query is wholly owned by
-  one shard: no merge.
-* **windowed** wide type-2 batches are off on the mesh
-  (``_enable_window``), as in the JAX engine: wide ranges take the dense
-  path, which is exact for every type.
+* **windowed** wide type-2 batches: the partitioned engine's windows, as
+  they are (whole-view tiles, the same buckets and rule). Each shard scans
+  its own tiles of the window (``parallel.mesh.dealt_window``), rounded out
+  to one local width shared by every shard; rows beside the window fail
+  every query's time predicate, so the result stays exact. Then as full:
+  original ids, the merge, the per-term minimum.
+* **routed** (cat view): a routed group's window lies inside one shard's
+  slab: spans that straddle a slab boundary go dense
+  (``_routable_extra``), and the groups are packed per slab and
+  dispatched on the shard that owns them, the shards' queues drained
+  round-robin. Each query is wholly owned by one shard: no merge. Narrow
+  type-2 spans are not routed on the dealt time view (``_route_time``):
+  they take the windowed or full path (``last_route["time_unrouted"]``).
 
 With ``repair_bins`` > 0 each slab's K1 (or plain packed) scan takes the
 in-program bin repair in the slab's own positions (``slab_scan``), and
@@ -30,19 +49,29 @@ bitmask per query.
 
 Suspects go through the partitioned engine's ladder: rung 1 this dense
 scan at 2R without level 2, rung 2 the per-shard streaming scan and the
-merge. The views are built whole on the mesh's first device before they
-are split, as the JAX engine builds them on its default device.
+merge.
+
+Spans (``utils.timing``): ``mesh/place`` for each view on each device as
+it is built (fields ``view``, ``card``, ``rows``, ``bytes``), and for each
+windowed batch a ``mesh_window`` counter (``B``, ``row0``, ``ntw``,
+``local_tiles``) under ``search/window``, then a ``mesh/window`` span over
+every shard's scan, the merge (``mesh/merge``) and the certificate.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from hvq_tpu_torch.index.partition import PartitionedIndex, SortedView
+from hvq_tpu_torch.index.partition import (
+    PartitionedIndex,
+    SortedView,
+    build_rows,
+    row_bytes,
+    view_keys,
+)
 from hvq_tpu_torch.models import common
 from hvq_tpu_torch.models.batched import (
     Slab,
@@ -56,21 +85,108 @@ from hvq_tpu_torch.models.partitioned import SCAN_IMPLS, PartitionedEngine
 from hvq_tpu_torch.ops.scan import choose_bin_top
 from hvq_tpu_torch.ops.topk import BIN
 from hvq_tpu_torch.parallel.collectives import allgather_topk_merge, min_terms
-from hvq_tpu_torch.parallel.mesh import engine_mesh, shard_rows
+from hvq_tpu_torch.parallel.mesh import deal_rows, dealt_window, engine_mesh
+from hvq_tpu_torch.utils import timing
 from hvq_tpu_torch.utils.formats import Dataset
 from hvq_tpu_torch.utils.timing import maybe_phase
 
+VIEW_NAMES = ("cat", "time")
 
-class MeshView(NamedTuple):
-    """A sorted view placed on the mesh: the whole view (host keys, sizes)
-    and one slab of it a shard, each a SortedView of ``local_n`` rows."""
 
-    view: SortedView
+@dataclasses.dataclass
+class MeshView:
+    """A sorted view placed on the mesh: the whole view's host keys
+    (``C_key``, ``T_key``) and sizes, and one slab of it a shard
+    (``shards``: a SortedView of ``local_n`` rows on the shard's device,
+    shards of one device being views of one block). ``dealt``: its tiles
+    are dealt round robin, else it lies in contiguous slabs."""
+
     shards: list
+    C_key: np.ndarray
+    T_key: np.ndarray
+    n: int
+    n_pad: int
+    db_tile: int
+    dealt: bool
+    dn_max: float       # the largest ‖d‖² over every shard
+
+    @property
+    def num_tiles(self) -> int:
+        return self.n_pad // self.db_tile
+
+    @property
+    def device(self) -> torch.device:
+        """The first shard's device, the mesh's home."""
+        return self.shards[0].device
+
+    @property
+    def nbytes(self) -> int:
+        """Device bytes of every shard together."""
+        return sum(v.nbytes for v in self.shards)
+
+    @property
+    def device_nbytes(self) -> int:
+        """The most bytes of the view that one device holds."""
+        held: dict = {}
+        for v in self.shards:
+            held[v.device] = held.get(v.device, 0) + v.nbytes
+        return max(held.values())
+
+    @property
+    def row_dtype(self) -> torch.dtype:
+        return self.shards[0].row_dtype
+
+    @property
+    def bf16_scan(self) -> bool:
+        return self.shards[0].bf16_scan
 
 
-def _slab(v: SortedView) -> Slab:
-    return Slab(v.Vp, v.scan_V, v.C, v.T, v.d_norms, v.oid)
+def _slab(v: SortedView, rows: slice = slice(None)) -> Slab:
+    """The rows ``rows`` of a shard as one scan's slab (views, no copy)."""
+    return Slab(v.Vp[rows], v.scan_V[rows], v.C[rows], v.T[rows], v.d_norms[rows],
+                v.oid[rows])
+
+
+def place_on_mesh(mesh):
+    """The placement of a view on ``mesh``'s "d" axis (q = 1), for
+    ``PartitionedIndex.build(place=)``: ``place(ds, perm, vid, db_tile=,
+    scan_store=, n_pad=, dtype=)`` builds the view of ``ds`` in the row
+    order ``perm`` (``vid`` 0 = cat, 1 = time) device by device, each
+    device gathering the rows of its shards (contiguous slabs of the cat
+    view, the time view's tiles dealt round robin), one ``mesh/place``
+    span each, and returns its :class:`MeshView`."""
+    devices = list(mesh.devices[0])
+    n_d = len(devices)
+
+    def place(ds: Dataset, perm: np.ndarray, vid: int, db_tile: int, scan_store: str,
+              n_pad: int, dtype) -> MeshView:
+        owned = deal_rows(n_pad, n_d, tile=db_tile if vid == 1 else None)
+        keys = view_keys(ds, perm)
+        L = n_pad // n_d
+        per_row = row_bytes(scan_store, dtype)
+        shards: list = [None] * n_d
+        blocks = []
+        for dev in mesh.distinct():
+            js = [j for j, d in enumerate(devices) if d == dev]
+            with maybe_phase(None, "mesh/place", view=VIEW_NAMES[vid], card=str(dev),
+                             rows=len(js) * L, bytes=len(js) * L * per_row):
+                block = build_rows(ds, perm, np.concatenate([owned[j] for j in js]),
+                                   db_tile, dev, scan_store=scan_store, dtype=dtype,
+                                   keys=keys)
+            blocks.append(block)
+            for p, j in enumerate(js):
+                rows = slice(p * L, (p + 1) * L)
+                shards[j] = SortedView(
+                    Vp=block.Vp[rows], C=block.C[rows], T=block.T[rows],
+                    d_norms=block.d_norms[rows], oid=block.oid[rows],
+                    C_key=keys[0], T_key=keys[1], n=ds.n, db_tile=db_tile,
+                    V_scan=None if block.V_scan is None else block.V_scan[rows])
+        # one sync a device, once every device's build is enqueued
+        dn_max = max(b.dn_max for b in blocks)
+        return MeshView(shards, keys[0], keys[1], ds.n, n_pad, db_tile,
+                        dealt=vid == 1, dn_max=dn_max)
+
+    return place
 
 
 class ShardedPartitionedEngine(PartitionedEngine):
@@ -125,7 +241,8 @@ class ShardedPartitionedEngine(PartitionedEngine):
             db_tile = 16384 if SCAN_IMPLS[scan_impl] == "v3" else 8192
         index = PartitionedIndex.build(ds, db_tile=db_tile, device=home,
                                        scan_store=scan_store,
-                                       row_multiple=self.n_d * db_tile, dtype=dtype)
+                                       row_multiple=self.n_d * db_tile, dtype=dtype,
+                                       place=place_on_mesh(self.mesh))
         super().__init__(
             ds, device=home, db_tile=db_tile, query_batch=query_batch, kprime=kprime,
             dtype=dtype, scan_store=scan_store, precision=precision,
@@ -147,27 +264,10 @@ class ShardedPartitionedEngine(PartitionedEngine):
         # with no sound bin depth the dense path streams per shard instead
         # of routing every query (a cap could exceed a slab)
         self._route_all_fallback = False
-        self._enable_window = False
+        # the time view is dealt tile by tile: windows, but no routed groups
+        self._route_time = False
         # a routed window must fit inside one slab
         self.route_buckets = tuple(c for c in self.route_buckets if c <= self._local_n)
-        self._placed: dict[int, MeshView] = {}
-        self._get_view(0)
-
-    # --- mesh placement ----------------------------------------------------
-    def _get_view(self, vid: int) -> MeshView:
-        """View ``vid`` (0 = cat, 1 = time, built on first use) placed on
-        the mesh: one slab a shard, on its device."""
-        if vid not in self._placed:
-            view = self.index.cat_view if vid == 0 else self.index.time_view
-            cols = {f: shard_rows(self.mesh, getattr(view, f))[0]
-                    for f in ("Vp", "C", "T", "d_norms", "oid")}
-            planes = (shard_rows(self.mesh, view.V_scan)[0] if view.V_scan is not None
-                      else [None] * self.n_d)
-            shards = [dataclasses.replace(view, **{f: c[j] for f, c in cols.items()},
-                                          V_scan=planes[j])
-                      for j in range(self.n_d)]
-            self._placed[vid] = MeshView(view, shards)
-        return self._placed[vid]
 
     def _routable_extra(self, start, end) -> np.ndarray:
         # a routed window must live inside ONE slab; spans straddling a
@@ -176,22 +276,26 @@ class ShardedPartitionedEngine(PartitionedEngine):
         return (start // self._local_n) == (last // self._local_n)
 
     # --- device paths -------------------------------------------------------
-    def _sharded_scan(self, mv: MeshView, Q: torch.Tensor, sn: int, n: int,
-                      k: int, bin_top: int | None, level2: bool, impl: str,
-                      phases=None):
-        """The per-shard stage on every slab, candidates turned into
-        original ids on their shard, the merge and the certificate → home
-        device (ids int32 (B, k), suspect bool (B,), dists fp32 (B, k))."""
+    def _sharded_scan(self, slabs: list, db_tile: int, Q: torch.Tensor, sn: int,
+                      n: int, k: int, bin_top: int | None, level2: bool, impl: str,
+                      phases=None, tile_index=None):
+        """The per-shard stage on each slab of ``slabs`` (one a shard, each
+        on its device), candidates turned into original ids on their
+        shard, the merge and the certificate → home device (ids int32 (B,
+        k), suspect bool (B,), dists fp32 (B, k)). ``tile_index``: the
+        streaming scan's tiles of each slab (``slab_scan``)."""
         home = self.device
         qbs = {}
         exact, oids, terms = [], [], []
-        for v in mv.shards:
-            if v.device not in qbs:
-                qbs[v.device] = unpack_query_block(Q.to(v.device, non_blocking=True))
-            e, pos, t = slab_scan(self, _slab(v), qbs[v.device], sn, self.kprime, impl,
-                                  bin_top, v.db_tile, level2, phases, k=k)
+        for slab in slabs:
+            dev = slab.Vp.device
+            if dev not in qbs:
+                qbs[dev] = unpack_query_block(Q.to(dev, non_blocking=True))
+            e, pos, t = slab_scan(self, slab, qbs[dev], sn, self.kprime, impl,
+                                  bin_top, db_tile, level2, phases, k=k,
+                                  tile_index=tile_index)
             exact.append(e)
-            oids.append(v.oid[pos.long()])      # slab positions → original ids
+            oids.append(slab.sid[pos.long()])   # slab positions → original ids
             terms.append(t)
         with maybe_phase(phases, "mesh/merge"):
             m_d, m_i = allgather_topk_merge(exact, oids, self.kprime, home)
@@ -213,16 +317,35 @@ class ShardedPartitionedEngine(PartitionedEngine):
                      row0: int | None = None, ntw: int | None = None,
                      phases=None):
         """The dense path: the certified packed scan on every slab (the
-        plain streaming scan where there is no bin depth)."""
-        if row0 is not None:
-            raise ValueError("the window path is off on a mesh")
+        plain streaming scan where there is no bin depth), or on each
+        shard's local tiles of the window [row0, row0 + ntw·Dt) of a dealt
+        view, one local width for every shard, in a ``mesh/window`` span."""
         bin_top = bin_top or self.bin_top
         impl = "stream" if bin_top is None else self.scan_impl
-        return self._sharded_scan(mv, Q, sn, n, k, bin_top, level2, impl, phases)
+        Dt = mv.db_tile
+        if row0 is None:
+            return self._sharded_scan([_slab(v) for v in mv.shards], Dt, Q, sn, n, k,
+                                      bin_top, level2, impl, phases)
+        if not mv.dealt:
+            raise ValueError("a window runs on a view dealt tile by tile")
+        w, starts = dealt_window(row0 // Dt, ntw, self.n_d, self._local_n // Dt)
+        tracer = timing.active_tracer
+        if tracer is not None:
+            tracer.count("mesh_window", B=int(Q.shape[0]), row0=int(row0), ntw=int(ntw),
+                         local_tiles=w)
+        slabs = [_slab(v, slice(a * Dt, (a + w) * Dt)) for v, a in zip(mv.shards, starts)]
+        with maybe_phase(phases, "mesh/window"):
+            return self._sharded_scan(slabs, Dt, Q, sn, n, k, bin_top, level2, impl,
+                                      phases)
 
     def _search_stream(self, mv: MeshView, Q: torch.Tensor, sn: int, n: int, k: int):
-        """The ladder's last rung: the per-shard streaming scan and the merge."""
-        return self._sharded_scan(mv, Q, sn, n, k, None, False, "stream")
+        """The ladder's last rung: the per-shard streaming scan and the
+        merge. Each shard's tiles are scored many at a time
+        (``tile_index``): tile by tile, a shard's 10⁷ rows cost the host
+        some 600 steps of a dozen launches each, and the cards wait on it."""
+        tiles = np.arange(self._local_n // mv.db_tile)
+        return self._sharded_scan([_slab(v) for v in mv.shards], mv.db_tile, Q, sn, n, k,
+                                  None, False, "stream", tile_index=tiles)
 
     def _enqueue_routed(self, mv: MeshView, q_idx, start, end, Qpack, sn, n, k,
                         pending, phases=None) -> tuple[dict, int]:

@@ -10,7 +10,10 @@ Devices may repeat. The tests build 8 CPU shards (``devices=["cpu"] * 8``),
 as the JAX tests use 8 virtual XLA CPU devices, and one card can hold
 several virtual shards. Where shards, or q rows, share a device, the
 placement helpers give them views of one copy of their rows, so n virtual
-shards of one card cost one database.
+shards of one card cost one database. A view's rows go to the shards in
+contiguous slabs or tile by tile (:func:`deal_rows`); a window of whole
+tiles of a dealt view is a contiguous range of local tiles on every shard
+(:func:`dealt_window`).
 
 A mesh across processes (``torch.distributed``) is not built: the JAX
 package has none either.
@@ -121,6 +124,39 @@ def shard_rows(mesh: Mesh, rows) -> list:
             row.append(block[pos[j] * L : (pos[j] + 1) * L])
         grid.append(row)
     return grid
+
+
+def deal_rows(n_rows: int, n_d: int, tile: int | None = None) -> list:
+    """The row positions of a view of ``n_rows`` that each of ``n_d``
+    shards holds, in its local order: contiguous slabs (``tile`` None:
+    shard j holds [j·L, (j+1)·L), L = n_rows / n_d, as :func:`shard_rows`),
+    or tiles of ``tile`` rows dealt round robin (tile t on shard t mod
+    n_d, at its local tile t div n_d)."""
+    if n_rows % (n_d * (tile or 1)):
+        raise ValueError(f"{n_rows} rows do not split into {n_d} shards of whole "
+                         f"{tile or 1}-row tiles")
+    if tile is None:
+        L = n_rows // n_d
+        return [np.arange(j * L, (j + 1) * L) for j in range(n_d)]
+    tiles = np.arange(n_rows).reshape(-1, n_d, tile)    # (local tile, shard, row)
+    return [tiles[:, j].reshape(-1) for j in range(n_d)]
+
+
+def dealt_window(tile0: int, ntiles: int, n_d: int, local_tiles: int) -> tuple[int, list]:
+    """Tiles [tile0, tile0 + ntiles) of a view dealt tile by tile
+    (:func:`deal_rows`) over ``n_d`` shards of ``local_tiles`` tiles each.
+    Each shard's tiles of the window are one contiguous range of its local
+    tiles. Returns (w, starts): one width w = ⌈ntiles / n_d⌉ for every
+    shard, and shard j's first local tile, such that [starts[j],
+    starts[j] + w) holds all of shard j's tiles of the window and lies
+    within its ``local_tiles``; the rest of that range is tiles beside the
+    window."""
+    w = -(-ntiles // n_d)
+    if w > local_tiles:
+        raise ValueError(f"a window of {ntiles} tiles exceeds {n_d} shards of "
+                         f"{local_tiles} tiles")
+    # shard j's first tile at or after tile0 is its local tile ⌈(tile0 − j) / n_d⌉
+    return w, [min(-(-(tile0 - j) // n_d), local_tiles - w) for j in range(n_d)]
 
 
 def replicate(mesh: Mesh, x) -> list:

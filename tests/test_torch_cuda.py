@@ -1056,3 +1056,45 @@ def test_partitioned_search_selects_through_the_level2_kernel(cuda, monkeypatch)
             recompute_result_distances(ds, oqs, got[sub].astype(np.int64)),
             recompute_result_distances(ds, oqs, oids.astype(np.int64)))
         assert res.ok, res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cards", [4, 1])
+def test_partitioned_sharded_over_four_cards_holds_each_card_even(cuda, cards):
+    """``partitioned_sharded`` on four shards at 2²² rows, the bf16 plane,
+    over four cards (``cards`` 4) or as four virtual shards of one: each
+    view built card by card and the time view dealt, so on four cards the
+    fullest card's peak is within 1.25× of the emptiest's; the time view
+    is built and wide type-2 batches take windows; the answers pass the
+    benchmark's check against its plain reference
+    (``hvq_bench.reference``)."""
+    if torch.cuda.device_count() < cards:
+        pytest.skip(f"needs {cards} cards")
+    from hvq_bench.checks import exact_knn
+    from hvq_tpu_torch import get_engine
+    from hvq_tpu_torch.parallel.mesh import make_mesh
+
+    devices = [torch.device("cuda", i % cards) for i in range(4)]
+    held = devices[:cards]
+    ds = generate_dataset(1 << 22, seed=23, categories=300)
+    qs = generate_queries(4096, seed=24, categories=300)
+    for card in held:
+        torch.cuda.synchronize(card)
+        torch.cuda.reset_peak_memory_stats(card)
+    eng = get_engine("partitioned_sharded")(ds, mesh=make_mesh(devices=devices),
+                                            scan_store="bf16", query_batch=256,
+                                            time_view_min_queries=1)
+    ids, _ = eng.search(qs)
+    peaks = [torch.cuda.max_memory_allocated(card) for card in held]
+    assert max(peaks) <= 1.25 * min(peaks), peaks
+    route = eng.last_route
+    assert route["time_view_built"] and sum(route["windowed_batches"].values()) >= 1, route
+    assert [v.device for v in eng.index.time_view.shards] == devices
+    cfg = dict(k=100, sample_proportion=1.0, guarantees=dict(dist_tolerance=0.002))
+    db = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(held[0])
+               for a in (ds.C, ds.T, ds.V))
+    q = {f: torch.from_numpy(np.ascontiguousarray(getattr(qs, f))).to(held[0])
+         for f in ("qtype", "v", "l", "r", "V")}
+    res = exact_knn.judge(cfg, db, q, torch.from_numpy(ids.astype(np.int64)).to(held[0]))
+    assert res["failed"] == 0 and res["dist_gap"] <= 0.002, res
+    assert res["bad_ids"] == 0 and res["dup_ids"] == 0, res

@@ -179,3 +179,18 @@ def test_row_multiple_is_not_ported(ds):
     _assert_views_equal(tidx.time_view, jidx.time_view)
     with pytest.raises(ValueError, match="multiple of db_tile"):
         tpart.PartitionedIndex.build(ds, db_tile=DB_TILE, row_multiple=300, device="cpu")
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_stable_argsort_and_cat_order_equal_numpys(dtype):
+    """The packed-word argsort is numpy's stable one: ties in index order,
+    −0 equal to +0, negatives below positives; ``cat_order`` is
+    ``np.lexsort((T, C))``."""
+    rng = np.random.default_rng(5)
+    keys = rng.choice(np.array([-2.5, -1.0, -0.0, 0.0, 1e-30, 3.0, 7.25], dtype), 5000)
+    keys[::7] = rng.uniform(-3, 3, keys[::7].size)
+    np.testing.assert_array_equal(tpart.stable_argsort(keys),
+                                  np.argsort(keys, kind="stable"))
+    ds = generate_dataset(4000, seed=6, categories=7)
+    ds.T[::3] = np.round(ds.T[::3])          # ties within categories
+    np.testing.assert_array_equal(tpart.cat_order(ds), np.lexsort((ds.T, ds.C)))

@@ -294,6 +294,42 @@ def test_cli_profile_puts_the_search_span_around_its_aten_ops(tmp_path):
                                                     "level2_select"}
 
 
+def test_cli_profile_carries_the_mesh_spans(tmp_path):
+    """``run --engine partitioned_sharded --profile`` (one CPU shard): the
+    time view's ``mesh/place`` span, a ``mesh_window`` counter under
+    ``search/window`` and a ``mesh/window`` span around each windowed
+    batch's ``mesh/merge``."""
+    from hvq_tpu_torch.cli.main import main
+
+    ds = generate_dataset(32768, seed=42, categories=20)
+    qs = generate_queries(128, seed=43, categories=20, types=(2,))
+    formats.write_data_bin(tmp_path / "data.bin", ds)
+    formats.write_query_bin(tmp_path / "queries.bin", qs)
+    rc = main(["run", "--data", str(tmp_path / "data.bin"),
+               "--queries", str(tmp_path / "queries.bin"), "--engine", "partitioned_sharded",
+               "--output", str(tmp_path / "out.bin"), "--device", "cpu",
+               "--query-batch", "32", "--db-tile", "2048",
+               "--engine-opt", "time_view_min_queries=1", "--profile", str(tmp_path / "prof")])
+    assert rc == 0
+    events = json.loads((tmp_path / "prof" / "trace.json").read_text())["traceEvents"]
+    mine = [e for e in events if e.get("pid") == profiling.SPAN_PID]
+    spans = [e for e in mine if e["ph"] == "X"]
+    by_id = {e["args"]["id"]: e for e in spans}
+    place = [e for e in spans if e["name"] == "mesh/place"]
+    assert [e["args"]["view"] for e in place] == ["time"]
+    assert place[0]["args"]["card"] == "cpu" and place[0]["args"]["rows"] == 32768
+    assert place[0]["args"]["bytes"] == 32768 * (128 * 4 + 16)
+    windows = [e for e in mine if e["ph"] == "i" and e["name"] == "mesh_window"]
+    assert windows and all(by_id[e["args"]["span"]]["name"] == "search/window"
+                           for e in windows)
+    assert {"B", "row0", "ntw", "local_tiles"} <= set(windows[0]["args"])
+    mesh_window = [e for e in spans if e["name"] == "mesh/window"]
+    assert len(mesh_window) == len(windows)
+    merges = [e for e in spans if e["name"] == "mesh/merge"]
+    assert sum(by_id[e["args"]["parent"]]["name"] == "mesh/window"
+               for e in merges) == len(windows)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
