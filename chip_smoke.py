@@ -28,8 +28,11 @@ Phases, in order; any failure exits non-zero with a traceback:
    scale-4096 layout of the certificate stress test), against their true
    values in fp64, as a share of the certificate's slack
    ``rel_mm·(‖q‖² + max‖d‖²)`` (must stay ≤ 0.5); K1's also on the 240 a
-   query that the level-2 select keeps of its stream;
-3c. determinism: K1, K3, K2 and K4 five times on the same inputs: K1 over
+   query that the level-2 select keeps of its stream (no query carries a
+   predicate: every warpgroup runs the predicate-free epilogue);
+3c. determinism: K1, K3, K2 and K4 five times on the same inputs, with
+   mixed predicates and again with none (every warpgroup on the
+   predicate-free epilogue): K1 over
    both planes, R of both bodies, 8 main-path tiles and 8-bin tiles, with
    CTAs enough for two an SM; K3, K2 and K4 at B = 1024 over 8 tiles of
    8192 rows at R 1–4 and 8, 8-bin tiles at R 3 and one R = 32 case on
@@ -162,7 +165,9 @@ Each path runs with the launch counts set to 0 just before it and read
 just after; the launches of K1, K3, K2 and K4 are also counted per body,
 and every launch of theirs on a main path must run the tensor-core body.
 K1 is timed at its five main-path shapes (D=10⁶ fp32, D=10⁷ bf16, the
-partitioned window, the paged window, a mesh shard), K3 and K2 at theirs
+partitioned window, the paged window, a mesh shard), at the first two
+also with every query open (the predicate-free epilogue, each warpgroup
+counted on it) and with every query carrying a T range, K3 and K2 at theirs
 (D=10⁶, Dt=8192, R=4; K3 also at a mesh shard), K4 at its own, each
 beside its bound, its plain version and ``torch.matmul`` of the same bf16
 passes alone (product only: not the same function, and the port never
@@ -212,7 +217,7 @@ from hvq_tpu_torch.tools import int8_probe, pallas_probe, v3_anatomy  # noqa: E4
 from hvq_tpu_torch.tools.card import (  # noqa: E402
     PEAK_BF16, PEAK_FP32, PEAK_INT8, bound as card_bound, card_line, event_ms)
 from hvq_tpu_torch.utils.check import bin_scan_agreement, scan_agreement  # noqa: E402
-from hvq_tpu_torch.utils.timing import PhaseTimer  # noqa: E402
+from hvq_tpu_torch.utils.timing import PhaseTimer, recording  # noqa: E402
 
 DEV = torch.device("cuda")
 _LANE_SRC = "hvq_tpu_torch/csrc/lane_scan.cu"
@@ -517,16 +522,18 @@ def determinism(name: str = "packed_scan_v3", runs: int = 5) -> int:
     _, Vf, C, T, dn, qV, (qtype, v, l, r) = small_problem(7, n_pad=n_pad, B=1024)
     fn = getattr(kernels, name)
     cases = 0
-    for plane in planes:
+    for plane, open_ in ((p, o) for p in planes for o in (False, True)):
         Vs = Vf if plane == "fp32" else Vf.to(torch.bfloat16)
-        args = scan_inputs(Vs, C, T, dn, qV, qtype, v, l, r)
+        args = scan_inputs(Vs, C, T, dn, qV, np.zeros_like(qtype) if open_ else qtype,
+                           v, l, r)
         for db_tile, R in shapes:
             kw = dict(db_tile=db_tile, bin_top=R)
             first = fn(*args, sn, **kw)
             for _ in range(runs - 1):
                 again = fn(*args, sn, **kw)
                 if not same_bits(first, again):
-                    raise AssertionError(f"{name} is not deterministic [{plane} {kw}]")
+                    raise AssertionError(f"{name} is not deterministic "
+                                         f"[{plane} {kw} open={open_}]")
             cases += 1
     log(f"  {name} determinism: {cases} cases × {runs} runs bit-identical")
     return cases
@@ -949,6 +956,7 @@ def run_engine(tag, eng, ds, qs, ref, seed) -> dict:
     bnd["product_only_matmul_ms"] = product_only_ms(plane, qV, 0, db.n_pad, passes)
     log(f"[{tag}] {name} {ms:.3f} ms/call, plain {plain_ms:.3f} ms/call, {bnd} "
         f"(B={B}, Dt={db.db_tile}, R={eng.bin_top}, n_pad={db.n_pad})")
+    by_predicate = k1_by_predicate(tag, args, kw) if name == "packed_scan_v3" else None
 
     # warm-up, then the timed main path with the launch counts around it
     eng.search(generate_queries(B, seed=seed + 2, categories=workload.CATEGORIES))
@@ -1001,7 +1009,39 @@ def run_engine(tag, eng, ds, qs, ref, seed) -> dict:
     return dict(name=name, qps=qs.m / wall, ms=ms, plain_ms=plain_ms, **bnd,
                 launches=launches, bodies=bodies, lane_bodies=lane_bodies,
                 max_abs_err=agree["max_abs_err"], suspects=ladder["suspects"],
-                ladder=ladder, ids=ids, level2=level2)
+                ladder=ladder, ids=ids, level2=level2, by_predicate=by_predicate)
+
+
+def k1_by_predicate(tag, args, kw, rounds: int = 4, reps: int = 5) -> dict:
+    """K1 at a main path's shape (``args`` as :func:`run_engine` forms
+    them) with every query open, so that each warpgroup runs the
+    predicate-free epilogue, and with every query carrying the T range
+    [−1, 1], the predicated loop: ms a call by CUDA events, the best of
+    ``rounds`` rounds in alternating order; a traced call of each counts
+    the free epilogue's warpgroups (all, and none)."""
+    B = args[5].shape[0]
+    no, yes = (torch.full((B,), x, dtype=torch.bool, device=DEV) for x in (False, True))
+    one = torch.ones(B, device=DEV)
+    mixes = {"open": (*args[:6], no, args[7], no, *args[9:]),
+             "predicated": (*args[:6], no, args[7], yes, -one, one, *args[11:])}
+    times = {mix: [] for mix in mixes}
+    for i in range(rounds):
+        for mix in (list(mixes) if i % 2 == 0 else list(mixes)[::-1]):
+            times[mix].append(event_ms(lambda: kernels.packed_scan_v3(*mixes[mix], **kw), reps))
+    res = {}
+    for mix, a in mixes.items():
+        tracer = PhaseTimer(DEV, fence=False)
+        with recording(tracer):
+            kernels.packed_scan_v3(*a, **kw)
+        torch.cuda.synchronize()
+        (launch,) = tracer.export()["counters"]
+        want = launch["warpgroups"] if mix == "open" else 0
+        assert launch["warpgroups"] > 0 and launch["open_warpgroups"] == want, (mix, launch)
+        res[mix] = dict(ms=min(times[mix]), ms_rounds=times[mix],
+                        open_warpgroups=launch["open_warpgroups"],
+                        warpgroups=launch["warpgroups"])
+    log(f"[{tag}] packed_scan_v3 by predicate (B={B}, R={kw['bin_top']}): {json.dumps(res)}")
+    return res
 
 
 def k4_path(tag, db, qs) -> dict:
@@ -2179,6 +2219,8 @@ def kernel_entries(r6: dict, r7: dict, r8: dict, worst: dict, cert: dict,
                                      r8["max_abs_err"]),
                      ms_d1e7_bf16=r7["ms"], plain_ms_d1e7_bf16=r7["plain_ms"],
                      qps_d1e7=r7["qps"],
+                     by_predicate={"d1e6_fp32": r6["v3"]["by_predicate"],
+                                   "d1e7_bf16": r7["by_predicate"]},
                      ms_window_d1e7_bf16=r8["window"]["ms"],
                      plain_ms_window_d1e7_bf16=r8["window"]["plain_ms"],
                      qps_partitioned_d1e7=r8["qps"],

@@ -247,12 +247,15 @@ cudaError_t launch_simt(Args a, cudaStream_t stream) {
 
 // ------------------------------------------------------------------ host
 
+// The tensor-core body's bins a CTA for R ≤ 4 (32 above, launch_wgmma_r).
+constexpr int wgmma_bins4(bool bf16) { return bf16 ? 64 : 32; }
+
 template <bool kBf16>
 int launch(const Args& a, cudaStream_t stream) {
   // bf16 plane: two warpgroups (128 queries) share a slice, 64 bins for
   // R ≤ 4; fp32 plane: one warpgroup and 32 bins (its split buffers fit two
   // CTAs an SM). Measured fastest of the shapes tried (PERF.md).
-  constexpr int kPasses = kBf16 ? 1 : 3, kNB4 = kBf16 ? 64 : 32, kWG = kBf16 ? 2 : 1;
+  constexpr int kPasses = kBf16 ? 1 : 3, kNB4 = wgmma_bins4(kBf16), kWG = kBf16 ? 2 : 1;
   if (a.R <= kMaxWgmmaR)
     return launch_wgmma_r<Axis1, kPasses, kNB4, kWG, 3>(a, stream);
   return launch_simt<typename std::conditional<kBf16, __nv_bfloat16, float>::type>(
@@ -264,20 +267,32 @@ int launch(const Args& a, cudaStream_t stream) {
 // Which body a scan at bin depth R runs: 0 = wgmma, 1 = simt.
 extern "C" int hvq_packed_scan_v3_body(int R) { return R <= kMaxWgmmaR ? 0 : 1; }
 
+// The consumer warpgroups that hold queries in a scan of B queries over ntw
+// tiles at bin depth R on the tensor-core body, ⌈B/64⌉ for each bin block
+// of each tile (0 on the CUDA-core body): what open_wg counts against.
+extern "C" int hvq_packed_scan_v3_warpgroups(int v_bf16, int B, int db_tile, int ntw,
+                                             int R) {
+  if (R > kMaxWgmmaR) return 0;
+  const int NB = R <= 4 ? wgmma_bins4(v_bf16 != 0) : 32, bins = db_tile / kSlices;
+  return (B + kM - 1) / kM * ((bins + NB - 1) / NB) * ntw;
+}
+
 // Plain C entry point for ctypes. Pointers are device pointers; the scan
 // plane V is (n_pad, 128) fp32 (v_bf16 == 0) or bf16 (v_bf16 != 0); C, T,
 // dn are (n_pad,) fp32, oid (n_pad,) int32; q (B, 128) fp32 (V and q
 // 16-byte aligned), qn (B,) fp32 query norms, ac/at (B,) int32 flags, v/l/r (B,) fp32.
 // The scan covers tiles [t0, t0 + ntw) of n_pad / db_tile. out_d / out_p
-// are (B, ntw·bin_top·db_tile/128). Returns 0 on success, the cudaError_t
-// of a failed launch, or −CUresult if the plane's tensor map cannot be
-// encoded.
-extern "C" int hvq_packed_scan_v3(
+// are (B, ntw·bin_top·db_tile/128). open_wg, when not null, is one int32
+// on the device to which each warpgroup of the tensor-core body that runs
+// the predicate-free epilogue adds 1. Returns 0 on success, the
+// cudaError_t of a failed launch, or −CUresult if the plane's tensor map
+// cannot be encoded.
+extern "C" int hvq_packed_scan_v3_counted(
     const void* V, int v_bf16, const float* C, const float* T,
     const float* dn, const int* oid, const float* q, const float* qn,
     const int* ac, const float* v, const int* at, const float* l,
     const float* r, int sn, int B, int n_pad, int db_tile, int bin_top,
-    int t0, int ntw, float* out_d, int* out_p, void* stream) {
+    int t0, int ntw, float* out_d, int* out_p, int* open_wg, void* stream) {
   if (B < 1 || db_tile < kSlices || db_tile % kSlices || bin_top < 1 ||
       bin_top > kSlices || t0 < 0 || ntw < 1 || n_pad % db_tile ||
       (long long)(t0 + ntw) * db_tile > n_pad)
@@ -286,7 +301,20 @@ extern "C" int hvq_packed_scan_v3(
     if (reinterpret_cast<uintptr_t>(p) % 16) return (int)cudaErrorMisalignedAddress;
   Args a{V, C, T, dn, oid, q, qn, ac, v, at, l, r, out_d, out_p,
          sn, B, db_tile, db_tile / kSlices, bin_top, t0, ntw, n_pad / kSlices,
-         0, 0, 0};
+         0, 0, 0, open_wg};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return v_bf16 ? launch<true>(a, s) : launch<false>(a, s);
+}
+
+// The same with no count: the untraced launch, and the entry that libraries
+// built from older sources share (tools/k1_ablate --reference loads one).
+extern "C" int hvq_packed_scan_v3(
+    const void* V, int v_bf16, const float* C, const float* T,
+    const float* dn, const int* oid, const float* q, const float* qn,
+    const int* ac, const float* v, const int* at, const float* l,
+    const float* r, int sn, int B, int n_pad, int db_tile, int bin_top,
+    int t0, int ntw, float* out_d, int* out_p, void* stream) {
+  return hvq_packed_scan_v3_counted(V, v_bf16, C, T, dn, oid, q, qn, ac, v, at, l, r, sn,
+                                    B, n_pad, db_tile, bin_top, t0, ntw, out_d, out_p,
+                                    nullptr, stream);
 }

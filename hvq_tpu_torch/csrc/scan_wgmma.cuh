@@ -54,7 +54,12 @@
 // bin) mapping is the same for every slice, so each thread keeps the running
 // top-R of its own fragment elements in registers across all 128 slices,
 // updated branch-free by a min/max pass (a masked key is +inf and passes
-// through, as does any key not below the list's R-th). Keys are distinct
+// through, as does any key not below the list's R-th). A warpgroup whose
+// queries all carry no predicate (ac = at = 0; rows past B count as such)
+// runs the epilogue's predicate-free body, chosen once by a vote of the
+// warpgroup: no C, T, compare or select, the row's liveness folded into its
+// ‖d‖² (+inf for a dead column, so its entry never goes below an empty
+// slot and the output is bit for bit the predicated body's). Keys are distinct
 // through the payload, so the running top-R equals the TPU kernels' R min
 // rounds bit for bit. K4's pairs are not distinct: a slice's lane is s and
 // the slices arrive in increasing s, so a strict < puts a score equal to a
@@ -121,6 +126,9 @@ struct Args {
   float* out_d;
   int* out_p;
   int sn, B, db_tile, bins, R, t0, ntw, nbins, nbb, nqb, QB;
+  // when not null, each warpgroup that holds queries and runs the
+  // predicate-free epilogue adds 1 here
+  int* open_wg;
 };
 
 // Shared-memory plan of one CTA, in bytes from a 1024-aligned base. Every
@@ -213,6 +221,17 @@ __device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
 // Barrier of one consumer warpgroup (ids 1, 2, ...; id 0 is __syncthreads).
 __device__ __forceinline__ void wg_sync(int wg) {
   asm volatile("bar.sync %0, %1;" :: "r"(1 + wg), "n"(kWGThreads) : "memory");
+}
+
+// wg_sync that also returns whether p holds on every thread of the
+// warpgroup (the same answer on each).
+__device__ __forceinline__ bool wg_all(int wg, bool p) {
+  uint32_t all;
+  asm volatile(
+      "{\n.reg .pred p, q;\nsetp.ne.u32 p, %1, 0;\n"
+      "bar.red.and.pred q, %2, %3, p;\nselp.u32 %0, 1, 0, q;\n}\n"
+      : "=r"(all) : "r"((uint32_t)p), "r"(1 + wg), "n"(kWGThreads) : "memory");
+  return all != 0;
 }
 
 // Barrier of all kWG consumer warpgroups (id kWG + 1, after theirs).
@@ -483,7 +502,8 @@ struct Lane {
     return (long long)g0 * kSlices + s;
   }
   // Slice s by TMA: one box {128 lanes, 1 slice, NB bins} of the 3-D map at
-  // (0, s, g0); bins past nbins come back zero-filled (masked by c < nb).
+  // (0, s, g0); bins past nbins come back zero-filled (dead: their oid is
+  // INT_MAX, the kernel's sentinel).
   template <bool kBf16>
   __device__ void load(uint32_t dst, const CUtensorMap* map, const Args&, int s, int,
                        uint32_t bar) const {
@@ -627,6 +647,14 @@ scan_wgmma(__grid_constant__ const CUtensorMap plane, Args a) {
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
+  // Columns past nb are never copied into the ring: their oid stays
+  // INT_MAX (≥ every sn), so a column is live exactly when its oid < sn.
+  // (Testing c < nb in the epilogue too cost the bf16 R ≥ 3 bodies spills.)
+  if (lay.nb < NB)
+    for (int i = tid; i < kStages * NB; i += blockDim.x) {
+      int* soid = reinterpret_cast<int*>(sm + P::ring + (i / NB) * P::kStage + P::kPlane);
+      if (i % NB >= lay.nb) soid[3 * NB + i % NB] = 0x7FFFFFFF;
+    }
   __syncthreads();
 
   if (tid >= kConsumers) {
@@ -671,6 +699,33 @@ scan_wgmma(__grid_constant__ const CUtensorMap plane, Args a) {
     return;
   }
 
+  // This thread's fragment: rows 16·warp + lane/4 + 8g, columns
+  // 8j + 2·(lane % 4) + h, accumulator element 4j + 2g + h. Each row's
+  // predicate as closed bounds on C and T: [v, v] for C == v, [l, r] for
+  // the T range, (−inf, inf) when inactive, an empty C range for rows past
+  // B. (A NaN attribute never passes; data has none.)
+  constexpr int kE = NB / 2;              // fragment elements a thread
+  const int warp = t / 32, lane = t % 32;
+  const float kInf = __int_as_float(0x7F800000);
+  float qn[2], clo[2], chi[2], tlo[2], thi[2];
+  bool open = true;                       // no row of this thread's carries a predicate
+#pragma unroll
+  for (int g = 0; g < 2; ++g) {
+    const int m = 16 * warp + lane / 4 + 8 * g;
+    const bool live = m < nq;
+    // a row past B (an idle warpgroup's too) reads a valid query's fields;
+    // not q0 + m itself, which the compiler would then keep live for the
+    // output rows across the slice loop
+    const int gq = min(q0, a.B - 1) + (live ? m : 0);
+    const bool ac = a.ac[gq] != 0, at = a.at[gq] != 0;
+    open = open && !(live && (ac || at));
+    qn[g] = a.qn[gq];
+    clo[g] = !live ? kInf : ac ? a.v[gq] : -kInf;
+    chi[g] = ac ? a.v[gq] : kInf;
+    tlo[g] = at ? a.l[gq] : -kInf;
+    thi[g] = at ? a.r[gq] : kInf;
+  }
+
   // Stage this warpgroup's query block (rows past B are zero) as its bf16
   // parts in the swizzled A layout (int8 queries: as they are, 128 B a row).
   constexpr int kQPart = kWG * P::kQ;     // from one part to the next
@@ -706,32 +761,13 @@ scan_wgmma(__grid_constant__ const CUtensorMap plane, Args a) {
       *reinterpret_cast<uint4*>(sm + P::q + j * kQPart + qoff + off) = part[j];
   }
   fence_async_smem();
-  wg_sync(wg);
+  // The warpgroup's barrier and its vote, once: the epilogue's
+  // predicate-free body when none of its live queries carries a predicate
+  // (the anatomy's earlier stages keep the predicated one, so the probe
+  // still times the mask).
+  open = wg_all(wg, kStop == kFull && open);
+  if (open && nq > 0 && t == 0 && a.open_wg != nullptr) atomicAdd(a.open_wg, 1);
 
-  // This thread's fragment: rows 16·warp + lane/4 + 8g, columns
-  // 8j + 2·(lane % 4) + h, accumulator element 4j + 2g + h. Each row's
-  // predicate as closed bounds on C and T: [v, v] for C == v, [l, r] for
-  // the T range, (−inf, inf) when inactive, an empty C range for rows past
-  // B. (A NaN attribute never passes; data has none.)
-  constexpr int kE = NB / 2;              // fragment elements a thread
-  const int warp = t / 32, lane = t % 32;
-  const float kInf = __int_as_float(0x7F800000);
-  float qn[2], clo[2], chi[2], tlo[2], thi[2];
-#pragma unroll
-  for (int g = 0; g < 2; ++g) {
-    const int m = 16 * warp + lane / 4 + 8 * g;
-    const bool live = m < nq;
-    // a row past B (an idle warpgroup's too) reads a valid query's fields;
-    // not q0 + m itself, which the compiler would then keep live for the
-    // output rows across the slice loop
-    const int gq = min(q0, a.B - 1) + (live ? m : 0);
-    const bool ac = a.ac[gq] != 0, at = a.at[gq] != 0;
-    qn[g] = a.qn[gq];
-    clo[g] = !live ? kInf : ac ? a.v[gq] : -kInf;
-    chi[g] = ac ? a.v[gq] : kInf;
-    tlo[g] = at ? a.l[gq] : -kInf;
-    thi[g] = at ? a.r[gq] : kInf;
-  }
   typename Key::T top[kE][RR];
 #pragma unroll
   for (int e = 0; e < kE; ++e)
@@ -797,25 +833,49 @@ scan_wgmma(__grid_constant__ const CUtensorMap plane, Args a) {
     const float* sdn = sT + NB;
     const int* soid = reinterpret_cast<const int*>(sdn + NB);
     if constexpr (kStop == kFull) {
+      // The vote's body, uniform across the warpgroup and the same every
+      // slice. (The whole slice loop instantiated once a body made the
+      // predicated one 2 % slower: more spills at 168 registers, PERF.md.)
+      if (open) {
+        // No predicate: a dead column (oid ≥ sn, past nb too) takes ‖d‖² =
+        // +inf, so its distance is +inf and its entry (0x7F800000 | s, or
+        // K4's (+inf, s)) never goes below an empty slot: each list ends as
+        // the predicated body leaves it (a live row's distance is finite, as
+        // the data is). C and T are not read.
 #pragma unroll
-      for (int j = 0; j < NB / 8; ++j) {
-        const int c0 = 8 * j + 2 * (lane & 3);      // this thread's column pair
-        const float2 C2 = *reinterpret_cast<const float2*>(sC + c0);
-        const float2 T2 = *reinterpret_cast<const float2*>(sT + c0);
-        const float2 dn2 = *reinterpret_cast<const float2*>(sdn + c0);
-        const int2 oid2 = *reinterpret_cast<const int2*>(soid + c0);
-        const bool live[2] = {c0 < lay.nb && oid2.x < a.sn,
-                              c0 + 1 < lay.nb && oid2.y < a.sn};
+        for (int j = 0; j < NB / 8; ++j) {
+          const int c0 = 8 * j + 2 * (lane & 3);      // this thread's column pair
+          const float2 dn2 = *reinterpret_cast<const float2*>(sdn + c0);
+          const int2 oid2 = *reinterpret_cast<const int2*>(soid + c0);
+          const float dn[2] = {oid2.x < a.sn ? dn2.x : kInf, oid2.y < a.sn ? dn2.y : kInf};
 #pragma unroll
-        for (int e = 4 * j; e < 4 * j + 4; ++e) {
-          const int h = e & 1, g = (e >> 1) & 1;
-          const float Cb = h ? C2.y : C2.x, Tb = h ? T2.y : T2.x;
-          const float d = Key::value(qd_of(acc[e]), h ? dn2.y : dn2.x, qn[g]);
-          const bool ok = live[h] && Cb >= clo[g] && Cb <= chi[g] && Tb >= tlo[g] &&
-                          Tb <= thi[g];
-          typename Key::T k = ok ? Key::entry(d, s) : Key::empty();
+          for (int e = 4 * j; e < 4 * j + 4; ++e) {
+            typename Key::T k =
+                Key::entry(Key::value(qd_of(acc[e]), dn[e & 1], qn[(e >> 1) & 1]), s);
 #pragma unroll
-          for (int r = 0; r < RR; ++r) Key::insert(top[e][r], k);   // carry the larger down
+            for (int r = 0; r < RR; ++r) Key::insert(top[e][r], k);   // carry the larger down
+          }
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < NB / 8; ++j) {
+          const int c0 = 8 * j + 2 * (lane & 3);      // this thread's column pair
+          const float2 C2 = *reinterpret_cast<const float2*>(sC + c0);
+          const float2 T2 = *reinterpret_cast<const float2*>(sT + c0);
+          const float2 dn2 = *reinterpret_cast<const float2*>(sdn + c0);
+          const int2 oid2 = *reinterpret_cast<const int2*>(soid + c0);
+          const bool live[2] = {oid2.x < a.sn, oid2.y < a.sn};
+#pragma unroll
+          for (int e = 4 * j; e < 4 * j + 4; ++e) {
+            const int h = e & 1, g = (e >> 1) & 1;
+            const float Cb = h ? C2.y : C2.x, Tb = h ? T2.y : T2.x;
+            const float d = Key::value(qd_of(acc[e]), h ? dn2.y : dn2.x, qn[g]);
+            const bool ok = live[h] && Cb >= clo[g] && Cb <= chi[g] && Tb >= tlo[g] &&
+                            Tb <= thi[g];
+            typename Key::T k = ok ? Key::entry(d, s) : Key::empty();
+#pragma unroll
+            for (int r = 0; r < RR; ++r) Key::insert(top[e][r], k);   // carry the larger down
+          }
         }
       }
     } else {

@@ -445,7 +445,7 @@ class PartitionedEngine:
 
     def _plan(self, qs, view_id, start, end):
         """Host routing (``partitioned.py:644-715``) → (full query indices,
-        windows [(row0, ntw, query indices)], routed [(view id, query
+        those with no predicate first, windows [(row0, ntw, query indices)], routed [(view id, query
         indices)], start, end, counts of the spans that fit a bucket but
         are not routed: {"straddling": for :meth:`_routable_extra`,
         "time": narrow type-2 spans kept off the time view, which take the
@@ -520,6 +520,12 @@ class PartitionedEngine:
                     windows.append((row0, ntw, chunk))
                     windowed[chunk] = True
         full = np.nonzero(~routable & ~windowed)[0]
+        # queries with no predicate first, each part in its order (a stable
+        # partition): a 64-query block of them runs K1's predicate-free
+        # epilogue; no query's answer depends on its batch
+        qt = qs.qtype[full]
+        open_ = (qt != 1) & (qt != 2) & (qt != 3)
+        full = np.concatenate([full[open_], full[~open_]])
         routed = []
         for vid in (0, 1):
             q_idx = np.nonzero((view_id == vid) & routable)[0]

@@ -211,7 +211,14 @@ _ENTRY_POINTS = {
         + [ctypes.c_int] * 7                      # sn B n_pad db_tile R t0 ntw
         + [ctypes.c_void_p] * 3                   # out_d out_p stream
     ),
+    "hvq_packed_scan_v3_counted": (
+        [ctypes.c_void_p, ctypes.c_int]          # V, v_bf16
+        + [ctypes.c_void_p] * 11                  # C T dn oid q qn ac v at l r
+        + [ctypes.c_int] * 7                      # sn B n_pad db_tile R t0 ntw
+        + [ctypes.c_void_p] * 4                   # out_d out_p open_wg stream
+    ),
     "hvq_packed_scan_v3_body": [ctypes.c_int],   # R
+    "hvq_packed_scan_v3_warpgroups": [ctypes.c_int] * 5,   # v_bf16 B db_tile ntw R
     "hvq_lane_scan": (
         [ctypes.c_int]                            # mode
         + [ctypes.c_void_p] * 12                  # V C T dn oid q qn ac v at l r
@@ -331,7 +338,11 @@ def packed_scan_v3(
     the kernel: its tensor-core body for ``bin_top`` ≤ 8, its CUDA-core body
     above (counted apart in ``k1_body_launches``). Under an active tracer
     (``utils.timing.recording``) each call counts a ``k1_launch`` with its
-    B, rows, W and plane bytes, on either device.
+    B, rows, W and plane bytes, on either device; on a card also with
+    ``warpgroups``, the tensor-core body's warpgroups that hold queries
+    (⌈B/64⌉ a bin block of each tile), and ``open_warpgroups``, those of
+    them that ran the predicate-free epilogue: a count the kernel keeps
+    on the card, read at the tracer's ``export()``.
     """
     device, n_pad, B = _check_scan_args(
         Vs, (torch.float32, torch.bfloat16), C, T, dn, oid, qV, active_c, v,
@@ -339,14 +350,16 @@ def packed_scan_v3(
     t0, nt = scan_window(n_pad, db_tile, row0, ntw)
     sn = int(sn)
     W = nt * bin_top * (db_tile // BIN)
+    bf16 = int(Vs.dtype == torch.bfloat16)
     tracer = timing.active_tracer
-    if tracer is not None:
-        # the launch log: the rows scanned (a window's or the plane's) and
-        # the width of the (B, W) output
-        tracer.count("k1_launch", kernel="packed_scan_v3", B=B,
-                     rows=ntw * db_tile if ntw else n_pad, W=W,
-                     plane_bytes=Vs.element_size())
+    # the launch log: the rows scanned (a window's or the plane's) and the
+    # width of the (B, W) output
+    log = None if tracer is None else dict(
+        kernel="packed_scan_v3", B=B, rows=ntw * db_tile if ntw else n_pad, W=W,
+        plane_bytes=Vs.element_size())
     if device.type == "cpu":
+        if log is not None:
+            tracer.count("k1_launch", **log)
         return packed_scan_plain(
             Vs, C, T, dn, oid, qV, active_c, v, active_t, l, r, sn,
             db_tile=db_tile, bin_top=bin_top, row0=row0, ntw=ntw,
@@ -354,16 +367,22 @@ def packed_scan_v3(
     if qV.data_ptr() % 16:             # read as float4s
         raise ValueError("qV must be 16-byte aligned")
     lib = build()
-    fn = lib.hvq_packed_scan_v3
+    fn, counted = lib.hvq_packed_scan_v3, ()
+    if log is not None:
+        open_wg = torch.zeros(1, dtype=torch.int32, device=device)
+        fn, counted = lib.hvq_packed_scan_v3_counted, (open_wg.data_ptr(),)
+        tracer.count("k1_launch", **log, open_warpgroups=open_wg,
+                     warpgroups=lib.hvq_packed_scan_v3_warpgroups(
+                         bf16, B, db_tile, nt, bin_top))
     out = _launch(
         "packed_scan_v3", device, B, W, qV,
         active_c, active_t,
         lambda qn, ac, at, out_d, out_p, stream: fn(
-            Vs.data_ptr(), int(Vs.dtype == torch.bfloat16),
+            Vs.data_ptr(), bf16,
             C.data_ptr(), T.data_ptr(), dn.data_ptr(), oid.data_ptr(),
             qV.data_ptr(), qn, ac, v.data_ptr(), at, l.data_ptr(),
             r.data_ptr(), sn, B, n_pad, db_tile, bin_top, t0, nt, out_d,
-            out_p, stream,
+            out_p, *counted, stream,
         ),
     )
     k1_body_launches[_BODIES[lib.hvq_packed_scan_v3_body(bin_top)]] += 1

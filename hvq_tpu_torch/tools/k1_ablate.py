@@ -23,14 +23,17 @@ Dt=16384, R=3, half the queries type 0 and half a wide type-2 range, as
 the partitioned engine's full batches; 611 tiles (D=10⁷) on the bf16
 plane and 62 tiles (D=10⁶) on the fp32 plane. Each variant is timed with
 CUDA events over 10 launches after one warm-up, in four rounds of
-alternating order.
+alternating order. ``base`` (and the reference) are also timed with every
+query type 0 (``open``: each warpgroup runs the predicate-free epilogue)
+and with every query type 2 (``predicated``), under ``ms_by_mix``.
 
 ``--reference DIR``: K1 is also built from ``DIR/packed_scan_v3.cu`` (with
 any ``*.cuh`` beside it; for example an earlier commit's
 ``hvq_tpu_torch/csrc``, unpacked with ``git archive``) and run on the same
 inputs as the shipped K1: R = 3 and the rung-1 R = 6 at both shapes, and
 on the bf16 plane a 305-tile window at row0 = 100 tiles, as the
-partitioned engine's windowed batches. Every output must be bit-identical
+partitioned engine's windowed batches, each with the three query mixes
+(half, open, predicated). Every output must be bit-identical
 (``reference_bit_identical`` counts the cases), and the reference is timed
 beside the variants in the same rounds (``ms["reference"]``). ``ptxas``
 gives the registers and spills of every K1 tensor-core instantiation of
@@ -51,6 +54,7 @@ and nvcc.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import shutil
@@ -162,6 +166,9 @@ def build(reference: str | None = None):
             {n: rep for n, _, rep in built if n in ("base", "reference")})
 
 
+MIXES = ("half", "open", "predicated")
+
+
 def inputs(plane: str, tiles: int, B: int = 1024, seed: int = 1, db_tile: int = 16384):
     """Scan inputs on the card over ``tiles`` tiles of ``db_tile`` rows, made
     there from ``seed``."""
@@ -183,6 +190,16 @@ def inputs(plane: str, tiles: int, B: int = 1024, seed: int = 1, db_tile: int = 
         qtype, torch.zeros(B, device=dev), torch.rand(B, device=dev, generator=g) * 0.3,
         0.5 + torch.rand(B, device=dev, generator=g) * 0.5)
     return (Vs, C, T, dn, oid, qV, *fields, n_pad)
+
+
+def with_mix(args: tuple, mix: str) -> tuple:
+    """``args`` of :func:`inputs` with their queries' predicates set by
+    ``mix``: "half" as made, "open" every query type 0, "predicated" every
+    query type 2 at its own range."""
+    if mix == "half":
+        return args
+    active_t = torch.full_like(args[8], mix == "predicated")
+    return args[:8] + (active_t,) + args[9:]
 
 
 def same_bits(a, b) -> bool:
@@ -234,15 +251,15 @@ def ablate(reference: str | None = None) -> dict:
             args = inputs(plane, tiles)
             if ref is not None:
                 checked = 0
-                for R, row0, ntw in reference_cases(plane):
+                for (R, row0, ntw), mix in itertools.product(reference_cases(plane), MIXES):
                     kr = dict(db_tile=16384, bin_top=R, row0=row0, ntw=ntw)
                     kernels._lib = libs["base"]
-                    mine = kernels.packed_scan_v3(*args, **kr)
+                    mine = kernels.packed_scan_v3(*with_mix(args, mix), **kr)
                     kernels._lib = ref
-                    theirs = kernels.packed_scan_v3(*args, **kr)
+                    theirs = kernels.packed_scan_v3(*with_mix(args, mix), **kr)
                     if not same_bits(mine, theirs):
-                        raise AssertionError(
-                            f"K1 differs from the reference [{plane} R={R} row0={row0}]")
+                        raise AssertionError(f"K1 differs from the reference "
+                                             f"[{plane} R={R} row0={row0} {mix}]")
                     checked += 1
                     del mine, theirs
                 res.setdefault("reference_bit_identical", {})[plane] = checked
@@ -250,6 +267,16 @@ def ablate(reference: str | None = None) -> dict:
             for name in rounds(k1_libs):
                 kernels._lib = libs[name]
                 times[name].append(event_ms(lambda: kernels.packed_scan_v3(*args, **kw), 10))
+            by_mix = {}
+            for mix in MIXES[1:]:
+                mixed = with_mix(args, mix)
+                names = [n for n in ("base", "reference") if n in libs]
+                by_mix[mix] = {name: [] for name in names}
+                for name in rounds(names):
+                    kernels._lib = libs[name]
+                    by_mix[mix][name].append(
+                        event_ms(lambda: kernels.packed_scan_v3(*mixed, **kw), 10))
+                del mixed
             kernels._lib = libs["base"]
             first = kernels.packed_scan_v3(*args, **kw)
             for _ in range(4):
@@ -257,7 +284,8 @@ def ablate(reference: str | None = None) -> dict:
                 if not same_bits(first, again):
                     raise AssertionError(f"base K1 is not deterministic [{plane}]")
                 del again
-            res["shapes"][f"{plane} {tiles} tiles"] = dict(ms=times, base_bit_identical_runs=5)
+            res["shapes"][f"{plane} {tiles} tiles"] = dict(ms=times, ms_by_mix=by_mix,
+                                                           base_bit_identical_runs=5)
             del args, first
             torch.cuda.empty_cache()
         res["lane_shapes"] = dict(shapes=LANE_SHAPES, ms=lane_shapes(libs))

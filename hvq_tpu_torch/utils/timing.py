@@ -153,7 +153,9 @@ class PhaseTimer:
     def export(self) -> dict:
         """{"clock", "spans", "counters"}: the closed spans, each with
         ``device_ms``, the elapsed time of its event pair, where it has one,
-        and the counters. Call it after synchronising the device."""
+        and the counters, a field that is a one-element tensor (a count the
+        device keeps) read as its number. Call it after synchronising the
+        device."""
         spans = []
         for span in self.spans:
             if "end_ns" not in span:
@@ -162,7 +164,9 @@ class PhaseTimer:
             if "events" in span:
                 out["device_ms"] = span["events"][0].elapsed_time(span["events"][1])
             spans.append(out)
-        return {"clock": "time.time_ns", "spans": spans, "counters": list(self.counters)}
+        counters = [{key: v.item() if isinstance(v, torch.Tensor) else v
+                     for key, v in c.items()} for c in self.counters]
+        return {"clock": "time.time_ns", "spans": spans, "counters": counters}
 
     def add(self, name: str, seconds: float, n: int = 1) -> None:
         self.totals[name] += seconds

@@ -20,6 +20,7 @@ from hvq_tpu_torch.ops import kernels, probe_kernels, topk
 from hvq_tpu_torch.ops.masks import query_predicate_fields
 from hvq_tpu_torch.ops.scan import packed_scan_plain
 from hvq_tpu_torch.tools import int8_probe, pallas_probe, v3_anatomy
+from hvq_tpu_torch.utils import timing
 from hvq_tpu_torch.utils.check import bin_scan_agreement, scan_agreement
 from hvq_tpu_torch.utils.compare import compare_distances, recall_at_k
 from hvq_tpu_torch.utils.formats import recompute_result_distances
@@ -377,6 +378,159 @@ def test_k1_is_deterministic(cuda, plane, db_tile, R):
         d, p = kernels.packed_scan_v3(*args, 120000, **kw)
         assert torch.equal(d.view(torch.int32), d0.view(torch.int32))
         assert torch.equal(p, p0)
+
+
+# ------------------------------------------ the predicate-free epilogue
+#
+# A consumer warpgroup (64 queries) none of whose queries carries a
+# predicate runs the body's predicate-free epilogue. Its output must be
+# bit for bit what the predicated epilogue gives: the same queries with the T
+# range (−inf, inf) take the predicated epilogue and keep every row the open
+# query keeps.
+
+_MIXES = ("open", "predicated", "blocks")
+
+
+def _with_mix(args, mix):
+    """``args`` of :func:`_inputs` with the queries' predicates set by
+    64-query block: "open" none carries one, "predicated" each carries one
+    (type 2 at its own range where none was drawn), "blocks" block i open
+    for i % 3 == 0, predicated for 1 and as drawn (mixed types) for 2."""
+    a = list(args)
+    ac, at = a[6], a[8]
+    B = ac.numel()
+    block = torch.arange(B, device=ac.device) // 64 % 3
+    if mix == "open":
+        opened, closed = torch.ones_like(ac), torch.zeros_like(ac)
+    elif mix == "predicated":
+        opened, closed = torch.zeros_like(ac), torch.ones_like(ac)
+    else:
+        opened, closed = block == 0, block == 1
+    a[6] = ac & ~opened
+    a[8] = (at & ~opened) | (closed & ~ac & ~at)
+    return a
+
+
+def _forced(args):
+    """``args`` with each query that carries no predicate given the T range
+    (−inf, inf): the same answers, through the predicated epilogue."""
+    a = list(args)
+    open_ = ~(a[6] | a[8])
+    a[8] = a[8] | open_
+    a[9] = torch.where(open_, -float("inf"), a[9])
+    a[10] = torch.where(open_, float("inf"), a[10])
+    return a
+
+
+def _open_blocks(args) -> int:
+    """The 64-query blocks of ``args`` none of whose queries carries a
+    predicate."""
+    open_ = ~(args[6] | args[8])
+    pad = (-open_.numel()) % 64
+    return int(torch.cat([open_, open_.new_ones(pad)]).view(-1, 64).all(1).sum())
+
+
+def _k1_traced(args, sn, **kw):
+    """K1 under a tracer: (its output, its ``k1_launch`` counter)."""
+    tracer = timing.PhaseTimer(args[0].device, fence=False)
+    with timing.recording(tracer):
+        out = kernels.packed_scan_v3(*args, sn, **kw)
+    torch.cuda.synchronize()
+    (log,) = tracer.export()["counters"]
+    return out, log
+
+
+_OPEN_INPUTS = {}
+
+
+def _open_cases(device, plane):
+    """(args, sn, kw) of every free-epilogue case but R: B ∈ {1, 64, 65, 1000},
+    each mix; two 16384-row tiles with rows past sn at the end (as a last
+    tile's pads), 1024-row tiles (8 bins: columns past a CTA's nb) with a
+    permuted oid, and a 9-tile window at row0 = 5 tiles."""
+    for B in (1, 64, 65, 1000):
+        key = (plane, B)
+        if key not in _OPEN_INPUTS:
+            _OPEN_INPUTS[key] = _inputs(device, plane, B=B, seed=61 + B)
+        base = list(_OPEN_INPUTS[key])
+        perm = base[:4] + [torch.randperm(base[4].numel(), generator=torch.Generator()
+                                          .manual_seed(B)).to(device, torch.int32)] + base[5:]
+        for mix in _MIXES:
+            yield _with_mix(base, mix), 32768 - 700, dict(db_tile=16384)
+            yield _with_mix(perm, mix), 20000, dict(db_tile=1024)
+            yield _with_mix(perm, mix), 20000, dict(db_tile=1024, row0=5 * 1024, ntw=9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plane", ["fp32", "bf16"])
+@pytest.mark.parametrize("R", [1, 2, 3, 4, 6, 8])
+def test_k1_free_epilogue_equals_the_predicated_one_bit_for_bit(cuda, plane, R):
+    """Open, predicated and mixed blocks in one launch: K1 equals its run
+    with every open query sent through the predicated epilogue, bit for bit,
+    and agrees with the plain version; the launch counts the free epilogue's
+    warpgroups, each block of 64 open queries once a bin block a tile."""
+    for args, sn, kw in _open_cases(cuda, plane):
+        kw = dict(kw, bin_top=R)
+        (d, p), log = _k1_traced(args, sn, **kw)
+        d0, p0 = kernels.packed_scan_v3(*_forced(args), sn, **kw)
+        case = (plane, R, args[5].shape[0], sn, kw)
+        assert torch.equal(d.view(torch.int32), d0.view(torch.int32)), case
+        assert torch.equal(p, p0), case
+        a = _agree(args, sn, **kw)
+        assert a["ok"], (case, a)
+        B = args[5].shape[0]
+        nb = 64 if plane == "bf16" and R <= 4 else 32
+        nt = kw.get("ntw") or 32768 // kw["db_tile"]
+        blocks = -(-(kw["db_tile"] // 128) // nb) * nt
+        assert log["warpgroups"] == -(-B // 64) * blocks, (case, log)
+        assert log["open_warpgroups"] == _open_blocks(args) * blocks, (case, log)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plane", ["fp32", "bf16"])
+def test_k1_free_epilogue_is_deterministic(cuda, plane):
+    """Every query open at the shape of test_k1_is_deterministic: five runs
+    bit for bit, each of the 16 warpgroups a bin block on the free epilogue."""
+    args = _with_mix(_inputs(cuda, plane, n_pad=8 * 16384, B=1024, seed=41), "open")
+    for R in (1, 3, 6):
+        kw = dict(db_tile=16384, bin_top=R)
+        (d0, p0), log = _k1_traced(args, 120000, **kw)
+        assert log["open_warpgroups"] == log["warpgroups"] > 0, log
+        for _ in range(4):
+            d, p = kernels.packed_scan_v3(*args, 120000, **kw)
+            assert torch.equal(d.view(torch.int32), d0.view(torch.int32))
+            assert torch.equal(p, p0)
+
+
+def _lane_open_cases(device):
+    """(args, sn, db_tile) of the lane kernels' free-epilogue cases: B ∈
+    {65, 1000}, each mix, a permuted oid and a sample limit, over 256 bins
+    (whole 32-bin CTAs) and over 40 (the last CTA holds 8)."""
+    for B in (65, 1000):
+        for n_pad, db_tile in ((32768, 2048), (5 * 1024, 1024)):
+            base = list(_inputs(device, n_pad=n_pad, B=B, seed=71 + B))
+            base[4] = torch.randperm(n_pad, generator=torch.Generator().manual_seed(B)
+                                     ).to(device, torch.int32)
+            for mix in _MIXES:
+                yield _with_mix(base, mix), n_pad * 5 // 8, db_tile
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["packed_scan", "packed_scan_v2", "bin_scan"])
+@pytest.mark.parametrize("R", [2, 4, 8])
+def test_lane_free_epilogue_equals_the_predicated_one_bit_for_bit(cuda, name, R):
+    """K3, K2 and K4 share the body: open, predicated and mixed blocks
+    equal the predicated epilogue's output bit for bit and agree with
+    their plain versions."""
+    fn = getattr(kernels, name)
+    for args, sn, db_tile in _lane_open_cases(cuda):
+        case = (name, R, args[5].shape[0], args[0].shape[0])
+        got = fn(*args, sn, db_tile=db_tile, bin_top=R)
+        want = fn(*_forced(args), sn, db_tile=db_tile, bin_top=R)
+        assert all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                   for x, y in zip(got, want)), case
+        a, _ = _lane_agree(name, args, sn, db_tile, R)
+        assert a["ok"], (case, a)
 
 
 _LANE = ["packed_scan", "packed_scan_v2"]

@@ -361,7 +361,14 @@ def _path(name):
                 bound_by="operations", product_only_matmul_ms=1.5, launches=launches,
                 bodies=bodies, lane_bodies=lanes, max_abs_err=0.01,
                 bound_fp32_simt_ms=3.0,
-                level2=_LEVEL2 if name == "packed_scan_v3" else None)
+                level2=_LEVEL2 if name == "packed_scan_v3" else None,
+                by_predicate=_BY_PREDICATE if name == "packed_scan_v3" else None)
+
+
+# A synthetic k1_by_predicate result of chip_smoke.
+_BY_PREDICATE = dict(
+    open=dict(ms=10.9, ms_rounds=[10.9, 11.0], open_warpgroups=19552, warpgroups=19552),
+    predicated=dict(ms=15.2, ms_rounds=[15.2, 15.3], open_warpgroups=0, warpgroups=19552))
 
 
 def test_chip_smoke_kernels_line_carries_k4s_new_keys():
@@ -399,6 +406,31 @@ def test_chip_smoke_kernels_line_carries_k4s_new_keys():
     need = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms"}
     assert all(need <= set(e) for e in entries.values())
+
+
+def test_chip_smoke_kernels_line_carries_k1_by_predicate():
+    """On synthetic numbers: K1's entry carries its times with every query
+    open and every query predicated at D=10⁶ fp32 and D=10⁷ bf16."""
+    cs = _chip_smoke()
+    r6 = {"v3": _path("packed_scan_v3"), "v1": _path("packed_scan"),
+          "v2": _path("packed_scan_v2"),
+          "k4": dict(ms=5.5, plain_ms=50.7, bound_ms=1.252, bound_by="operations",
+                     product_only_matmul_ms=5.6, launches=1,
+                     bodies={"wgmma": 1, "simt": 0}, max_abs_err=0.002)}
+    r7 = dict(_path("packed_scan_v3"),
+              by_predicate=dict(_BY_PREDICATE, open=dict(_BY_PREDICATE["open"], ms=10.5)))
+    r8 = dict(_path("packed_scan_v3"), window=dict(ms=7.0, plain_ms=300.0, bound_ms=1.0,
+                                                   bound_by="operations",
+                                                   product_only_matmul_ms=4.0,
+                                                   level2=dict(_LEVEL2, W=117120)))
+    names = ("packed_scan_v3", "packed_scan", "packed_scan_v2", "bin_scan")
+    entries = {e["name"]: e for e in cs.kernel_entries(
+        r6, r7, r8, dict.fromkeys(names, 0.001), {n: {"fp32": 0.01} for n in names},
+        {n: 7 for n in names + ("level2_select",)}, "lib.so")}
+    k1 = entries["packed_scan_v3"]["by_predicate"]
+    assert k1["d1e6_fp32"] == _BY_PREDICATE
+    assert k1["d1e7_bf16"]["open"]["ms"] == 10.5
+    assert k1["d1e7_bf16"]["predicated"] == _BY_PREDICATE["predicated"]
 
 
 def test_chip_smoke_trivial_entry_carries_device_and_host_times():

@@ -522,6 +522,31 @@ def test_each_window_holds_its_batch_candidates():
         assert ntw in {eng.index.cat_view.num_tiles // d for d in (8, 4, 2)}
 
 
+def test_full_path_puts_the_queries_with_no_predicate_first():
+    """_plan's full indices over shuffled types 0-3: the members are the
+    queries neither routed nor windowed, those with no predicate first and
+    each part in its own order (a stable partition), so that K1's 64-query
+    blocks of them run its predicate-free epilogue; the answers stay
+    within the oracle's contract."""
+    ds = generate_dataset(131072, seed=92, categories=30)
+    qs = _concat(generate_queries(512, seed=93, categories=30),
+                 _type2(256, 96, 0.5, 2.5))
+    eng = PartitionedEngine(ds, db_tile=2048, query_batch=128, route_buckets=(4096,),
+                            time_view_min_queries=8, device="cpu")
+    view_id, start, end = eng.index.query_ranges(qs.qtype, qs.v, qs.l, qs.r)
+    full, windows, routed, *_ = eng._plan(qs, view_id, start, end)
+    elsewhere = np.concatenate([c for _, _, c in windows] + [q for _, q in routed])
+    assert windows and routed
+    np.testing.assert_array_equal(np.sort(full), np.setdiff1d(np.arange(qs.m), elsewhere))
+    open_ = qs.qtype[full] == 0
+    n_open = int(open_.sum())
+    assert 0 < n_open < full.size and open_[:n_open].all()
+    assert (np.diff(full[:n_open]) > 0).all() and (np.diff(full[n_open:]) > 0).all()
+    assert not (np.diff(full) > 0).all()           # the types were interleaved
+    _exact(ds, qs, eng)
+    assert eng.last_route["full"] == full.size
+
+
 def test_forced_ladder_escalates_and_holds_the_sample_limit(monkeypatch):
     """bin_top=1 saturates bins, so the certificate flags; rung 1 (the
     engine's own scan at R=2) and rung 2 (the streaming scan on original

@@ -167,6 +167,21 @@ def test_k1_launch_log_equals_what_each_launch_ran(setup, monkeypatch):
     assert len({c["rows"] for c in logged}) > 1
 
 
+def test_export_reads_a_count_kept_on_the_device_as_its_number():
+    """A counter field that is a one-element tensor (K1's
+    ``open_warpgroups``, which the kernel adds to on the card) is read at
+    ``export()``, not when it is counted: what the device added after the
+    count shows, as a number; other fields pass as they are."""
+    tracer = PhaseTimer("cpu", fence=False)
+    count = torch.zeros(1, dtype=torch.int32)
+    with tracer.phase("search"):
+        tracer.count("k1_launch", B=3, warpgroups=4, open_warpgroups=count)
+    count += 2
+    (c,) = tracer.export()["counters"]
+    assert c["open_warpgroups"] == 2 and type(c["open_warpgroups"]) is int
+    assert (c["B"], c["warpgroups"], c["name"]) == (3, 4, "k1_launch")
+
+
 def test_level2_select_is_counted_under_a_tracer_and_runs_plain_on_cpu():
     """The select's counter names what ran (B, W, rounds, layout and body:
     "plain" on the CPU, where no kernel launches) under the open span; with
