@@ -143,21 +143,14 @@ Phases, in order; any failure exits non-zero with a traceback:
    sharded and partitioned_sharded (the default mesh: every visible card)
    and batched under ``--profile`` (a Chrome trace), then ``compare`` of
    the exact engines' ``.dist`` files ("same" or "similar");
-12. the harness around the engines: (a) ``hvq_tpu_torch.entry.
+12. the harness around the engines: ``hvq_tpu_torch.entry.
    dryrun_multichip(4)`` on the card with its capacity leg (D=10⁶:
    ``partitioned_sharded`` at ≥ 16 tiles a shard and the paged engine
-   over 4 windows, recall 1.0 both); the full-diff partners' card bytes
-   a row at D=10⁶ (batched, partitioned), which must not exceed the
-   runner's ``PARTNER_BYTES_PER_ROW``; batched's ids-only fetch against
-   its full fetch in turns; (b) the benchmark runner's measuring function
-   (``tools.bench.run``) at its default shape, ``partitioned`` over phase
-   6's 10⁷ rows (bf16 plane) with phase 7's 4·10⁴ queries: 3 timed runs,
-   recall 1.0 and ``.dist`` "same" on 64 oracle queries, and a full diff
-   against ``batched`` over every query; (c) ``python -m
-   hvq_tpu_torch.tools.bench`` as a subprocess (``batched``, D=10⁶,
-   Q=10⁴): exit 0 and its last line, the partner ``partitioned``; (d)
-   ``tools.serving_latency`` at D=10⁶, 50 calls at B=1 and B=16 for
-   batched and partitioned.
+   over 4 windows, recall 1.0 both); batched's ids-only fetch against its
+   full fetch at D=10⁶, 10⁴ queries, the ids held equal; the serving
+   shape: ``batched`` and ``partitioned`` with ``query_batch=16``, ids
+   only, on single queries (the first of each type, then 12 in order) and
+   four 16-query slices, each held to the full fetch's rows.
 
 Each phase's seconds are printed as it ends.
 
@@ -203,7 +196,8 @@ import torch  # noqa: E402
 from hvq_tpu_torch.constants import VEC_DIM  # noqa: E402
 from hvq_tpu_torch.models.oracle import search_oracle_batched  # noqa: E402
 from hvq_tpu_torch.utils.compare import compare_distances, recall_at_k  # noqa: E402
-from hvq_tpu_torch.utils.formats import QuerySet, recompute_result_distances  # noqa: E402
+from hvq_tpu_torch.utils.formats import (  # noqa: E402
+    QuerySet, recompute_result_distances, slice_queries)
 from hvq_tpu_torch.utils.generators import generate_dataset, generate_queries  # noqa: E402
 from hvq_tpu_torch.tools import workload  # noqa: E402
 from hvq_tpu_torch import get_engine  # noqa: E402
@@ -2009,8 +2003,8 @@ def path_harness() -> dict:
     return dict(run_s=out, launches=launches)
 
 
-BENCH_ROWS, BENCH_QUERIES = 1_000_000, 10_000       # phase 12c's runner
-LATENCY_ROWS, LATENCY_CALLS = 1_000_000, 50          # phase 12d's
+FETCH_ROWS, FETCH_QUERIES = 1_000_000, 10_000       # phase 12's fetch
+SERVING_SINGLES, SERVING_SLICES = 12, 4             # phase 12's serving shape
 
 
 def counted() -> dict:
@@ -2018,15 +2012,6 @@ def counted() -> dict:
     return dict(launches=dict(kernels.launches), bodies=dict(kernels.k1_body_launches),
                 lane_bodies={k: dict(v) for k, v in kernels.lane_body_launches.items()},
                 level2_bodies=dict(kernels.level2_body_launches))
-
-
-def runner_counts(rec: dict) -> dict:
-    """A runner line's launches (its median timed search) in a path
-    result's keys."""
-    by_body = rec["launches_by_body"]
-    return dict(launches=rec["launches"], bodies=by_body["packed_scan_v3"],
-                lane_bodies={k: by_body[k] for k in kernels.lane_body_launches},
-                level2_bodies=by_body["level2_select"])
 
 
 def assert_k1_only(tag: str, counts: dict, wgmma: int | None = None) -> None:
@@ -2043,133 +2028,100 @@ def assert_k1_only(tag: str, counts: dict, wgmma: int | None = None) -> None:
                                        "shared": 0}, (tag, counts)
 
 
-def path_runner(ds, qs6) -> dict:
-    """Phase 12: the harness around the engines. (a) the mesh dry run on
-    4 virtual shards of the card with its capacity leg (D=10⁶: ≥ 16 tiles
-    a shard, 4 paged windows, recall 1.0 both); the full-diff partners'
-    card bytes a row at D=10⁶ against ``bench.PARTNER_BYTES_PER_ROW``;
-    (b) the benchmark runner's measuring function in process at its
-    default shape, ``partitioned`` over phase 6's 10⁷ rows (bf16 plane)
-    with phase 7's 4·10⁴ queries: 3 timed runs, the 64-query oracle check
-    and a full diff against ``batched`` over every query; (c) ``python -m
-    hvq_tpu_torch.tools.bench`` as a subprocess (``batched``, D=10⁶,
-    Q=10⁴, no dataset cache): exit 0 and its last line; (d) the serving
-    latency tool at D=10⁶, 50 calls a batch size."""
+def serving_slices(qs) -> list:
+    """The serving shape's query slices, (start, stop): the first query of
+    each type alone, then ``SERVING_SINGLES`` single queries in order, then
+    ``SERVING_SLICES`` consecutive 16-query slices."""
+    firsts = [int(np.flatnonzero(np.asarray(qs.qtype) == t)[0]) for t in range(4)]
+    return ([(i, i + 1) for i in firsts + list(range(SERVING_SINGLES))]
+            + [(16 * j, 16 * (j + 1)) for j in range(SERVING_SLICES)])
+
+
+def path_dryrun() -> dict:
+    """Phase 12: the harness around the engines. The mesh dry run on 4
+    virtual shards of the card with its capacity leg (D=10⁶: ≥ 16 tiles a
+    shard, 4 paged windows, recall 1.0 both); the batched engine's
+    ids-only fetch against its full fetch, ids held equal; the serving
+    shape (``query_batch=16``, ids only, 1 and 16 queries a call) of the
+    batched and partitioned engines, held to the full fetch's rows."""
     from hvq_tpu_torch.entry import dryrun_multichip
-    from hvq_tpu_torch.tools import bench, serving_latency
 
     out = {}
-    tag = "runner"
+    tag = "dryrun"
     t0 = time.perf_counter()
     reset_counts()
     dry = dryrun_multichip(MESH_SHARDS, device=DEV.type)
     out["dryrun"] = dict(counted(), seconds=time.perf_counter() - t0, **dry)
     cap = dry["capacity"]
-    log(f"[{tag}] 12a dryrun_multichip({MESH_SHARDS}) with the capacity leg: "
+    log(f"[{tag}] 12 dryrun_multichip({MESH_SHARDS}) with the capacity leg: "
         f"{json.dumps(out['dryrun'])}")
     assert cap["tiles_per_shard"] >= 16 and cap["windows"] == 4, cap
     # the small legs' 128-row tiles pick R > 8 (the CUDA-core body); the
     # capacity leg's 8192-row tiles one launch a shard and a window on
     # the tensor-core body
-    assert_k1_only("12a", out["dryrun"], wgmma=MESH_SHARDS + cap["windows"])
+    assert_k1_only("12", out["dryrun"], wgmma=MESH_SHARDS + cap["windows"])
 
-    # the partners' footprint, on the runner's own D=10⁶ data (12c's)
-    ds1 = generate_dataset(BENCH_ROWS, seed=0, categories=1000)
-    qs1 = generate_queries(BENCH_QUERIES, seed=1, categories=1000, centers_seed=0)
-    foot = {p: bench.partner_footprint(p, ds1, qs1, DEV) for p in ("batched", "partitioned")}
-    log(f"[{tag}] full-diff partners' card bytes a row at D={BENCH_ROWS:.0e}, "
-        f"{BENCH_QUERIES} queries: {foot}; the runner's table "
-        f"{bench.PARTNER_BYTES_PER_ROW}")
-    out["partner_bytes_per_row"] = foot
-    assert all(bench.PARTNER_BYTES_PER_ROW[p] >= b for p, b in foot.items()), foot
-    # the batched engine's ids-only fetch against the full fetch, in turns
+    # the batched engine's ids-only fetch against the full fetch
+    ds1 = generate_dataset(FETCH_ROWS, seed=0, categories=1000)
+    qs1 = generate_queries(FETCH_QUERIES, seed=1, categories=1000, centers_seed=0)
     eng = get_engine("batched")(ds1, device=DEV)
-    eng.search(qs1, return_dists=False)
-    qps = {"full": [], "ids_only": []}
-    for kind in ("full", "ids_only", "ids_only", "full", "full", "ids_only"):
-        t0 = time.perf_counter()
-        ids, dists = eng.search(qs1, return_dists=kind == "full")
-        qps[kind].append(qs1.m / (time.perf_counter() - t0))
-        if kind == "full":
-            ids_full = ids
-        else:
-            assert dists is None
-    assert np.array_equal(ids, ids_full)
-    out["fetch_qps_d1e6"] = qps
-    log(f"[{tag}] batched D={BENCH_ROWS:.0e} fp32, {qs1.m} queries, QPS by fetch: "
-        f"{json.dumps(qps)}")
-    del eng, ds1, qs1
-    torch.cuda.empty_cache()
-
-    qs = workload.partitioned_queries(qs6)
-    lines = []
-    t0 = time.perf_counter()
-    rec = bench.run(ds, qs, "partitioned", DEV, emit=lines.append)
-    log(f"[{tag}] 12b the runner in process ({time.perf_counter() - t0:.1f} s), "
-        f"{len(lines)} lines; the last: {json.dumps(rec)}")
-    out["bench_d1e7"] = dict(runner_counts(rec), qps=rec["value"], record=rec)
-    assert rec["timed_runs"] == 3 and len(rec["run_qps"]) == 3, rec
-    assert rec["checked_queries"] == 64 and rec["recall_at_100"] == 1.0, rec
-    assert rec["dist_check"] == "same", rec
-    assert rec["full_diff"] in ("same", "similar"), rec
-    assert rec["full_diff_queries"] == qs.m == 40_000, rec
-    assert rec["full_diff_engines"] == ["partitioned", "batched_fp32"], rec
-    assert rec["scan_impl"] == "v3" and rec["backend"] == "torch", rec
-    assert_k1_only("12b", out["bench_d1e7"])
-    del qs
-
-    env = dict(os.environ, HVQ_BENCH_N=str(BENCH_ROWS), HVQ_BENCH_Q=str(BENCH_QUERIES),
-               HVQ_BENCH_ENGINE="batched", HVQ_BENCH_CACHE="")
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "hvq_tpu_torch.tools.bench"],
-                          cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
-                          capture_output=True, text=True, timeout=600)
-    sub_s = time.perf_counter() - t0
-    assert proc.returncode == 0, proc.stderr[-4000:]
-    last = json.loads(proc.stdout.strip().splitlines()[-1])
-    log(f"[{tag}] 12c python -m hvq_tpu_torch.tools.bench (batched, D={BENCH_ROWS:.0e}, "
-        f"Q={BENCH_QUERIES}; {sub_s:.1f} s, rc 0): {json.dumps(last)}")
-    out["bench_subprocess"] = dict(runner_counts(last), qps=last["value"], record=last,
-                                   seconds=sub_s)
-    assert last["recall_at_100"] == 1.0 and last["dist_check"] == "same", last
-    assert last["full_diff"] in ("same", "similar"), last
-    assert last["full_diff_engines"] == ["batched", "partitioned_fp32"], last
-    assert_k1_only("12c", out["bench_subprocess"])
-
-    saved = {k: os.environ.get(k) for k in ("SL_N", "SL_CALLS")}
-    os.environ.update(SL_N=str(LATENCY_ROWS), SL_CALLS=str(LATENCY_CALLS))
-    t0 = time.perf_counter()
     reset_counts()
-    try:
-        recs = serving_latency.main(DEV.type)
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
-    out["latency"] = dict(counted(), records=recs, seconds=time.perf_counter() - t0)
-    assert [(r["engine"], r["batch"]) for r in recs] == [
-        ("batched", 1), ("batched", 16), ("partitioned", 1), ("partitioned", 16)], recs
-    assert all(r["calls"] == LATENCY_CALLS for r in recs), recs
-    assert_k1_only("12d", out["latency"])
+    ids_full, _ = eng.search(qs1)
+    ids, dists = eng.search(qs1, return_dists=False)
+    assert dists is None and np.array_equal(ids, ids_full)
+    out["fetch"] = counted()
+    log(f"[{tag}] batched D={FETCH_ROWS:.0e} fp32, {qs1.m} queries: the ids-only "
+        f"fetch's ids equal the full fetch's")
+    assert_k1_only("12 fetch", out["fetch"])
+    del eng
+
+    # the serving shape: a single query pads to 16, planned and routed alone
+    slices = serving_slices(qs1)
+    reset_counts()
+    checks = {}
+    for name in ("batched", "partitioned"):
+        eng = get_engine(name)(ds1, device=DEV, query_batch=16)
+        got = []
+        for a, b in slices:
+            ids, dists = eng.search(slice_queries(qs1, a, b), return_dists=False)
+            assert dists is None and ids.shape == (b - a, 100), (name, a, b)
+            got.append(ids)
+        rows = np.concatenate([np.arange(a, b) for a, b in slices])
+        sub = QuerySet(qtype=qs1.qtype[rows], v=qs1.v[rows], l=qs1.l[rows],
+                       r=qs1.r[rows], V=qs1.V[rows])
+        ids = np.concatenate(got)
+        same = int(np.all(ids == ids_full[rows], axis=1).sum())
+        full = compare_distances(
+            recompute_result_distances(ds1, sub, ids.astype(np.int64)),
+            recompute_result_distances(ds1, sub, ids_full[rows].astype(np.int64)))
+        log(f"[{tag}] serving {name} query_batch=16, {len(slices)} calls "
+            f"({len(rows)} queries): {same} with the full fetch's ids, "
+            f"{full.status} max|Δ|={full.max_abs_diff}")
+        assert full.ok, (name, full)
+        checks[name] = dict(calls=len(slices), queries=len(rows), same_ids=same,
+                            dist=full.status)
+        del eng
+    out["serving"] = dict(counted(), **checks)
+    assert_k1_only("12 serving", out["serving"])
+    del ds1, qs1
+    torch.cuda.empty_cache()
     return out
 
 
 def kernel_entries(r6: dict, r7: dict, r8: dict, worst: dict, cert: dict,
                    deterministic: dict, library: str, paged: dict | None = None,
                    mesh: dict | None = None, options: dict | None = None,
-                   runner: dict | None = None) -> list:
+                   phase12: dict | None = None) -> list:
     """The kernels line's entries of K1–K4 from the main paths' results
     (phases 4–7, phase 8's paged engine, phases 9a–9c's mesh engines,
     phase 10's repaired engines and ``xla_deferred`` ladder and phase
     12's harness when given: ``mesh`` = {"sharded", "sharded_k3",
     "partitioned_sharded"}, ``options`` = {engine name: its phase-10
-    result}, ``runner`` = {12's step: its counts}), phase 3's worst
+    result}, ``phase12`` = {12's step: its counts}), phase 3's worst
     errors, phase 3b's certificate ratios and phase 3c's deterministic
     cases."""
     paths = [r6["v3"], r6["v1"], r6["v2"], r7, r8] + ([paged] if paged else [])
-    paths += list((runner or {}).values())
+    paths += list((phase12 or {}).values())
     if mesh:
         paths += [mesh["sharded"], mesh["sharded"]["one_shard"], mesh["sharded_k3"],
                   mesh["partitioned_sharded"]]
@@ -2259,11 +2211,11 @@ def kernel_entries(r6: dict, r7: dict, r8: dict, worst: dict, cert: dict,
                 e.update(launches_phase10={k: r["launches"][name]
                                            for k, r in options.items()},
                          qps_phase10={k: r["qps"] for k, r in options.items()})
-            if runner:
-                # phase 12: the dry run, the runner's median timed search
-                # (in process and as a subprocess) and the latency tool
+            if phase12:
+                # phase 12: the dry run, the fetch's two searches and the
+                # serving shape's calls
                 e.update(launches_phase12={k: r["launches"][name]
-                                           for k, r in runner.items()})
+                                           for k, r in phase12.items()})
         entries.append(e)
     l2 = r7["level2"]
     # every path's level-2 launches ran the register body: want_level2_launches
@@ -2357,8 +2309,7 @@ def main() -> int:
                        flagged=mesh["partitioned_sharded"]["route"]["suspects"],
                        dense_straddling=mesh["partitioned_sharded"]["route"]["dense_straddling"])))
     lap("10a")
-    # phase 12 reuses the host rows and queries of phases 6-7
-    del ref, batched_ids, partitioned_ids, paged_ids, sharded_ids, psharded_ids
+    del ds, qs, ref, batched_ids, partitioned_ids, paged_ids, sharded_ids, psharded_ids
     del db6, index7
     torch.cuda.empty_cache()
     log("phases 10b-10e: xla_deferred, the top-k strategies, bf16 storage, native + CLI")
@@ -2383,21 +2334,14 @@ def main() -> int:
                 for k, v in r10a.items()},
         xla_deferred=r10b, strategies=r10c, bf16_storage=r10d, native_cli=r10e)))
     torch.cuda.empty_cache()
-    log("phase 12: the dry run's capacity leg, the benchmark runner, the latency tool")
-    r12 = path_runner(ds, qs)
-    del ds, qs
+    log("phase 12: the dry run's capacity leg, the ids-only fetch, the serving shape")
+    r12 = path_dryrun()
     lap("12")
-    log(f"phase 12 summary: runner {r12['bench_d1e7']['qps']} QPS (partitioned D=1e7), "
-        f"{r12['bench_subprocess']['qps']} QPS (batched D=1e6, subprocess); latency "
-        + json.dumps([{k: r[k] for k in ("engine", "batch", "p50_ms", "p95_ms", "p99_ms",
-                                         "max_ms", "rerun_calls")}
-                      for r in r12["latency"]["records"]]))
     log(f"phase seconds: {json.dumps(lap.seconds)}")
     library = os.path.basename(kernels.build_info["path"])
-    runner = {k: r12[k] for k in ("dryrun", "bench_d1e7", "bench_subprocess", "latency")}
     entries = kernel_entries(r6, r7, r8, worst, cert, deterministic, library,
                              paged=r9, mesh=mesh, options=dict(r10a, xla_deferred=r10b),
-                             runner=runner) + probes
+                             phase12=r12) + probes
     log(card)
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {

@@ -28,10 +28,10 @@ Package layout::
                bisection, torch.profiler traces
       cli/     ``python -m hvq_tpu_torch.cli run | compare | build-index |
                gen-data | gen-queries``
-      tools/   ``python -m hvq_tpu_torch.tools.bench`` (the benchmark
-               runner's JSON line), ``tools.serving_latency`` (B = 1 / 16
-               latency), and the probes' and kernels' measurement
-               tools
+      tools/   the probes' and kernels' measurement tools (the card's
+               end-to-end measurement is the repository's ``hvq_bench/``;
+               its correctness, ``tests/test_torch_cuda.py -m cuda`` and
+               ``chip_smoke.py``)
       entry.py the batched search step and a mesh dry run with its
                capacity leg (the counterpart of the repository's
                ``__graft_entry__.py``)

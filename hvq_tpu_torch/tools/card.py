@@ -31,11 +31,6 @@ def card_line() -> str:
     return out[torch.cuda.current_device()] if out else ""
 
 
-def device_line(device: torch.device) -> str:
-    """:func:`card_line` for a CUDA device, else the device's type."""
-    return card_line() if device.type == "cuda" else device.type
-
-
 def event_ms(fn, reps: int) -> float:
     """Milliseconds a call of ``fn``: one warm-up, then CUDA events around
     ``reps`` calls."""

@@ -102,14 +102,11 @@ def test_port_imports_nothing_of_the_jax_package():
 def test_port_sources_name_no_jax_no_jax_package_no_experiments():
     """No import statement of the port or of chip_smoke.py, at any depth
     (a function-level import the interpreter test would not reach too),
-    names jax, hvq_tpu, experiments or the root bench.py; the port's
-    benchmark runner and latency tool are among the files."""
+    names jax, hvq_tpu, experiments or the root bench.py."""
     foreign = re.compile(
         r"^\s*(from|import)\s+(jax|hvq_tpu|experiments|bench)(\.|\s|$)", re.M)
     files = sorted((REPO / "hvq_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 20
-    tools = REPO / "hvq_tpu_torch" / "tools"
-    assert {tools / "bench.py", tools / "serving_latency.py"} <= set(files)
     for f in files:
         assert not foreign.search(f.read_text()), f
 
@@ -118,12 +115,6 @@ def _tiny_ds():
     from hvq_tpu_torch.utils.generators import generate_dataset
 
     return generate_dataset(300, seed=1, categories=5)
-
-
-def _tiny_qs():
-    from hvq_tpu_torch.utils.generators import generate_queries
-
-    return generate_queries(4, seed=2, categories=5)
 
 
 def _view_arrays(n_pad=256):
@@ -140,7 +131,7 @@ def _view_arrays(n_pad=256):
                                   "SortedView.from_arrays", "PartitionedIndex.build",
                                   "PartitionedIndex.from_arrays", "PagedEngine",
                                   "IVFEngine", "IVFIndex.build", "IVFIndex.from_host",
-                                  "load_index", "bench.run", "serving_latency.main"])
+                                  "load_index"])
 def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch, tmp_path, name):
     """Every engine, view and index constructor and the checkpoint loader
     defaults to ``device="cuda"``; with the card hidden that default raises
@@ -153,15 +144,13 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch, tmp_
     from hvq_tpu_torch.models.ivf import IVFEngine
     from hvq_tpu_torch.models.paged import PagedEngine
     from hvq_tpu_torch.models.partitioned import PartitionedEngine
-    from hvq_tpu_torch.tools import bench, serving_latency
 
     owner, _, attr = name.partition(".")
     fn = {"BatchedEngine": BatchedEngine, "PartitionedEngine": PartitionedEngine,
           "DeviceDB": DeviceDB, "SortedView": SortedView,
           "PartitionedIndex": PartitionedIndex, "PagedEngine": PagedEngine,
           "IVFEngine": IVFEngine, "IVFIndex": IVFIndex,
-          "load_index": serialize.load_index, "bench": bench,
-          "serving_latency": serving_latency}[owner]
+          "load_index": serialize.load_index}[owner]
     fn = getattr(fn, attr) if attr else fn
     assert inspect.signature(fn).parameters["device"].default == "cuda"
     ds, view = _tiny_ds(), _view_arrays()
@@ -189,8 +178,6 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch, tmp_
         "PartitionedIndex.build": lambda: PartitionedIndex.build(ds, db_tile=128),
         "PartitionedIndex.from_arrays": lambda: PartitionedIndex.from_arrays(
             view, np.zeros(200, np.float32)),
-        "bench.run": lambda: bench.run(ds, _tiny_qs(), "batched"),
-        "serving_latency.main": lambda: serving_latency.main(),
     }[name]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

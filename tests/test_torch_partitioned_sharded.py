@@ -125,7 +125,7 @@ def test_merged_ids_are_unique_and_original(small_ds, engines):
     np.testing.assert_allclose(d.numpy(), want, rtol=1e-5, atol=1e-3)
 
 
-def test_windows_off_and_q_axis_rejected(small_ds):
+def test_windows_run_on_the_mesh_and_q_axis_rejected(small_ds):
     """Windows run on the mesh: the time view is dealt tile by tile, the
     wide type-2 batches take windows, narrow type-2 spans are not routed
     on the dealt view; a mesh with a q axis is rejected."""
