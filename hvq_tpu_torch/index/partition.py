@@ -17,9 +17,14 @@ database plus host sort keys. Each row carries its original id in ``oid``,
 so results and the reference's sample limit (``oid < sn``, file order)
 stay in the original id space.
 
-The host functions (``query_ranges``, ``tiles_for_ranges``,
-``pad_tile_list``) are copies of the JAX package's: its module imports jax
-at the top.
+``query_ranges`` gives the JAX package's ranges bit for bit through one
+native pass (``hvq_tpu_torch.native``, ``routing.cpp``): types 1 and 3 look
+their category up in ``cat_table``, the cat view's distinct C keys and
+their row bounds, kept on the host at build; type 3 then searches T inside
+its category's segment, category by category, and type 2 searches
+``T_sorted``, each search branch-free and 16 in lockstep. ``tiles_for_ranges``
+and ``pad_tile_list`` are copies of the JAX package's: its module imports
+jax at the top.
 """
 
 from __future__ import annotations
@@ -34,6 +39,8 @@ import numpy as np
 import torch
 
 from hvq_tpu_torch import constants as _c
+from hvq_tpu_torch import native
+from hvq_tpu_torch.utils import timing
 from hvq_tpu_torch.utils.formats import Dataset
 from hvq_tpu_torch.models.device_db import (
     PinnedStaging,
@@ -311,6 +318,12 @@ class PartitionedIndex:
     # place(ds, perm, vid, db_tile=, scan_store=, n_pad=, dtype=) → view;
     # None: the whole view on the cat view's device (place_on)
     _place: Optional[Callable] = None
+    # (distinct C keys float32 (K,), their first rows and n int64 (K + 1,))
+    # of the cat view: the partitions of its categories
+    cat_table: tuple = dataclasses.field(init=False, repr=False)
+
+    def __post_init__(self):
+        self.cat_table = category_table(self.cat_view.C_key)
 
     @property
     def device(self) -> torch.device:
@@ -413,7 +426,7 @@ class PartitionedIndex:
                    _db_tile=cat.db_tile,
                    _scan_store="fp32" if cat.V_scan is None else "bf16")
 
-    # ---- host-side range resolution (binary search on sort keys) --------
+    # ---- host-side range resolution ---------------------------------------
     def query_ranges(
         self,
         qtype: np.ndarray,
@@ -424,42 +437,31 @@ class PartitionedIndex:
         """Per query: (view_id, start, end) — 0 = cat_view, 1 = time_view.
 
         The range is the exact candidate span in the chosen view; every row
-        outside it fails the predicate.
+        outside it fails the predicate. Each equals ``np.searchsorted`` on
+        the host keys (``C_key``, then ``T_key`` inside the category;
+        ``T_sorted``), as the JAX package's; the time view is not built.
+        Under a tracer, a ``route`` counter: ``queries``, and those resolved
+        by the category table (``table``), by the type-3 segment search
+        (``segment``) and by the type-2 search (``time``).
         """
-        m = qtype.shape[0]
-        view = np.where(qtype == 2, 1, 0).astype(np.int32)
-        start = np.zeros(m, np.int64)
-        end = np.full(m, self.cat_view.n, np.int64)
-
         cv = self.cat_view
-        is1 = qtype == 1
-        is2 = qtype == 2
-        is3 = qtype == 3
-        if is1.any() or is3.any():
-            sel = is1 | is3
-            s = np.searchsorted(cv.C_key, v[sel], side="left")
-            e = np.searchsorted(cv.C_key, v[sel], side="right")
-            start[sel], end[sel] = s, e
-        if is3.any():
-            # narrow each partition by its sorted timestamps, grouped by
-            # category: one batched searchsorted per distinct category
-            idx3 = np.nonzero(is3)[0]
-            v3 = v[idx3]
-            order = np.argsort(v3, kind="stable")
-            sidx = idx3[order]
-            vs = v3[order]
-            b = np.r_[0, np.flatnonzero(np.diff(vs)) + 1, vs.size]
-            for g0, g1 in zip(b[:-1], b[1:]):
-                g = sidx[g0:g1]
-                s, e = start[g[0]], end[g[0]]
-                seg = cv.T_key[s:e]
-                start[g] = s + np.searchsorted(seg, l[g], side="left")
-                end[g] = s + np.searchsorted(seg, r[g], side="right")
-        if is2.any():
-            # from the host keys alone: does not build the time view
-            start[is2] = np.searchsorted(self.T_sorted, l[is2], side="left")
-            end[is2] = np.searchsorted(self.T_sorted, r[is2], side="right")
+        view, start, end, (table, segment, n_time) = native.query_ranges(
+            qtype, v, l, r, *self.cat_table, cv.T_key, self.T_sorted)
+        tracer = timing.active_tracer
+        if tracer is not None:
+            tracer.count("route", queries=int(view.size), table=table, segment=segment,
+                         time=n_time)
         return view, start, end
+
+
+def category_table(C_key: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """The distinct values of the sorted keys ``C_key`` (float32 (K,)) and
+    the row where each one's run starts, then n (int64 (K + 1,)): a key's
+    ``np.searchsorted`` bounds are ``bounds[np.searchsorted(cats, ...)]``."""
+    C_key = np.asarray(C_key)
+    cuts = np.flatnonzero(C_key[1:] != C_key[:-1]) + 1
+    bounds = np.r_[0, cuts, C_key.size].astype(np.int64)
+    return np.ascontiguousarray(C_key[bounds[:-1]], np.float32), bounds
 
 
 def tiles_for_ranges(

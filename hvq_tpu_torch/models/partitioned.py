@@ -54,6 +54,7 @@ one device→host copy.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from collections import Counter
 
@@ -61,6 +62,7 @@ import numpy as np
 import torch
 
 from hvq_tpu_torch import constants as _c
+from hvq_tpu_torch import native
 from hvq_tpu_torch.utils.formats import Dataset, QuerySet
 from hvq_tpu_torch.index.partition import PartitionedIndex, SortedView
 from hvq_tpu_torch.models import common
@@ -87,6 +89,7 @@ from hvq_tpu_torch.ops import kernels
 from hvq_tpu_torch.ops.distance import PRECISIONS, dot_nt, require_ieee_fp32
 from hvq_tpu_torch.ops.scan import LAYOUTS, choose_bin_top, packed_scan_plain
 from hvq_tpu_torch.ops.topk import BIN, smallest_k
+from hvq_tpu_torch.utils import timing
 from hvq_tpu_torch.utils.timing import maybe_phase, request_span
 
 # scan_impl names (the JAX package's and the port's) → the full-path scan:
@@ -205,12 +208,7 @@ class PartitionedEngine:
         # Snug extra bucket for whole-partition (type-1) windows: the
         # longest category run in the (C, T)-sorted view, rounded up
         # (+128: group window starts are aligned down to 128 rows).
-        ck = cv.C_key
-        if ck.size > 1:
-            bnd = np.flatnonzero(ck[1:] != ck[:-1]) + 1
-            wmax = int(np.diff(np.r_[0, bnd, ck.size]).max())
-        else:
-            wmax = int(ck.size)
+        wmax = int(np.diff(index.cat_table[1]).max())
         cap_part = -(-(wmax + 128) // 512) * 512
         buckets = set(route_buckets)
         # only ever insert an intermediate cap: the largest route bucket
@@ -551,25 +549,34 @@ class PartitionedEngine:
         """Pack the routable queries ``q_idx`` of ``view`` into shared
         windows (:meth:`_pack_groups`) and enqueue their dispatches,
         ``routed_groups`` groups each, onto ``pending``; returns ({cap:
-        groups}, dispatches). The host packer (the groups, then each
-        dispatch's layout) runs in ``routed/pack`` phases. The mesh
+        groups}, dispatches). The host packer (the groups, then every
+        dispatch's layout) runs in one ``routed/pack`` phase, which a
+        tracer's ``pack`` counter (:meth:`_count_pack`) joins. The mesh
         subclass homes each group to the shard that owns its window."""
+        R = self.routed_groups
         with maybe_phase(phases, "routed/pack"):
             by_cap = self._pack_groups(start, end, q_idx)
+            layouts = [(cap, self._routed_layout(by_cap[cap][s : s + R], start, end))
+                       for cap in sorted(by_cap) for s in range(0, len(by_cap[cap]), R)]
+            counts = {cap: len(groups) for cap, groups in by_cap.items()}
+            self._count_pack(q_idx.size, counts, len(layouts))
         dev = self.device
-        dispatches = 0
-        for cap in sorted(by_cap):
-            glist = by_cap[cap]
-            for s in range(0, len(glist), self.routed_groups):
-                with maybe_phase(phases, "routed/pack"):
-                    g_start, st, en, slots = self._routed_layout(
-                        glist[s : s + self.routed_groups], start, end)
-                res = self._search_routed(
-                    view, *(upload_async(a, dev) for a in (g_start, st, en)),
-                    upload_async(Qpack[slots], dev), sn, n, k, cap)
-                pending.append(("routed", slots, pack_result(*res)))
-                dispatches += 1
-        return {cap: len(gl) for cap, gl in by_cap.items()}, dispatches
+        for cap, (g_start, st, en, slots) in layouts:
+            res = self._search_routed(
+                view, *(upload_async(a, dev) for a in (g_start, st, en)),
+                upload_async(Qpack[slots], dev), sn, n, k, cap)
+            pending.append(("routed", slots, pack_result(*res)))
+        return counts, len(layouts)
+
+    @staticmethod
+    def _count_pack(queries: int, groups: dict, layouts: int) -> None:
+        """The tracer's ``pack`` counter: the routed queries packed, the
+        groups they made (``groups``: {cap: count}) and the dispatch
+        layouts filled."""
+        tracer = timing.active_tracer
+        if tracer is not None:
+            tracer.count("pack", queries=int(queries), groups=sum(groups.values()),
+                         layouts=layouts)
 
     def _rerun_suspects(self, Qpack, suspects, ids_out, dists_out, sn, n, k):
         """The batched engine's ladder (:func:`rerun_suspect_ladder`) on the
@@ -593,9 +600,10 @@ class PartitionedEngine:
         return rerun_suspect_ladder(suspects, ids_out, dists_out,
                                     self.query_batch, deeper, "full", run)
 
-    def _pack_groups(self, start, end, q_idx):
+    def _pack_groups(self, start, end, q_idx) -> dict:
         """Greedy shared-window packer over start-sorted routable queries
-        (``partitioned.py:943-1005``).
+        (``partitioned.py:943-1005``), in the native host runtime
+        (``native.pack_groups``).
 
         Walks queries in range-start order, extending the current group's
         window while it stays within the group's target cap and the group
@@ -603,75 +611,43 @@ class PartitionedEngine:
         only while the group is under half full (the routed top-k and the
         row reads both scale with cap). Window starts are aligned down to
         128 rows when that keeps the width within the widest bucket.
-        Returns {cap: [(g_start, member_ids)]}.
+        Returns {cap: :class:`Groups`}, each a sequence of (g_start,
+        member_ids) in the order the walk closed them.
         """
-        caps = self.route_buckets
-        G = self.route_group
-        order = q_idx[np.argsort(start[q_idx], kind="stable")]
-        by_cap: dict[int, list] = {}
+        caps = np.asarray(self.route_buckets, np.int64)
+        g_cap, g_start, members = native.pack_groups(start, end, q_idx, caps,
+                                                     self.route_group)
+        used, first = np.unique(g_cap, return_index=True)
+        return {int(caps[c]): Groups(g_start[g_cap == c], members[g_cap == c])
+                for c in used[np.argsort(first)]}
 
-        def cover(width):
-            for i, c in enumerate(caps):
-                if c >= width:
-                    return i
-            return len(caps) - 1
-
-        def close(members, g_start, width):
-            cap = caps[cover(width)]
-            by_cap.setdefault(cap, []).append((g_start, members))
-
-        cur: list[int] = []
-        g_start = g_end = 0
-        ti = 0
-        for q in order:
-            s, e = int(start[q]), int(end[q])
-            if not cur:
-                cur = [q]
-                g_start = s - (s % 128)
-                if e - g_start > caps[-1]:
-                    g_start = s          # alignment is best-effort
-                g_end = max(e, g_start)
-                ti = cover(g_end - g_start)
-                continue
-            new_end = max(g_end, e)
-            width = new_end - g_start
-            if len(cur) < G and width <= caps[ti]:
-                cur.append(q)
-                g_end = new_end
-            elif (
-                len(cur) < G // 2
-                and ti + 1 < len(caps)
-                and width <= caps[ti + 1]
-            ):
-                ti += 1
-                cur.append(q)
-                g_end = new_end
-            else:
-                close(cur, g_start, g_end - g_start)
-                cur = [q]
-                g_start = s - (s % 128)
-                if e - g_start > caps[-1]:
-                    g_start = s
-                g_end = max(e, g_start)
-                ti = cover(g_end - g_start)
-        if cur:
-            close(cur, g_start, g_end - g_start)
-        return by_cap
-
-    def _routed_layout(self, chunk, start, end):
+    def _routed_layout(self, chunk: Groups, start, end):
         """Host arrays of one routed dispatch over the groups ``chunk``:
         (g_start (NG,), starts (NG, G), ends (NG, G), slots (NG·G,)) with
         slot -1 and an empty span for each unused place of a group."""
-        G = self.route_group
-        NG = len(chunk)
-        g_start = np.zeros(NG, np.int64)
-        st = np.zeros((NG, G), np.int64)
-        en = np.zeros((NG, G), np.int64)
-        slots = np.full(NG * G, -1, np.int64)
-        for gi, (gs, members) in enumerate(chunk):
-            g_start[gi] = gs
-            members = np.asarray(members)
-            st[gi, : members.size] = start[members]
-            en[gi, : members.size] = end[members]
-            slots[gi * G : gi * G + members.size] = members
-        return g_start, st, en, slots
+        real = chunk.members >= 0
+        st = np.where(real, start[chunk.members], 0).astype(np.int64, copy=False)
+        en = np.where(real, end[chunk.members], 0).astype(np.int64, copy=False)
+        return chunk.g_start, st, en, chunk.members.reshape(-1)
+
+
+@dataclasses.dataclass
+class Groups:
+    """Routed groups of one cap: window starts ``g_start`` int64 (NG,) and
+    ``members`` int64 (NG, route_group), each group's queries, -1 past its
+    last. A sequence of (g_start, member ids); a slice is a Groups."""
+
+    g_start: np.ndarray
+    members: np.ndarray
+
+    def __len__(self) -> int:
+        return self.g_start.shape[0]
+
+    def __getitem__(self, i):
+        if isinstance(i, slice):
+            return Groups(self.g_start[i], self.members[i])
+        row = self.members[i]
+        return int(self.g_start[i]), row[row >= 0]
+
+    def __iter__(self):
+        return (self[i] for i in range(len(self)))

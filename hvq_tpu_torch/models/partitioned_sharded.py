@@ -352,36 +352,38 @@ class ShardedPartitionedEngine(PartitionedEngine):
         """Shard-aware routed packing: groups are packed per slab and
         dispatched on the shard that owns their window, in its own
         coordinates, the shards' queues drained round-robin so shards on
-        different devices work at once. The host packer runs in
-        ``routed/pack`` phases, as the base class's."""
+        different devices work at once. The host packer (every slab's
+        groups, then every dispatch's layout) runs in one ``routed/pack``
+        phase with its ``pack`` counter, as the base class's."""
         ln = self._local_n
+        R = self.routed_groups
         slab_of = start[q_idx] // ln
-        by_cap: dict[int, list] = {}
         with maybe_phase(phases, "routed/pack"):
-            for sh in np.unique(slab_of):
-                packed = self._pack_groups(start, end, q_idx[slab_of == sh])
-                for cap, glist in packed.items():
-                    by_cap.setdefault(cap, [[] for _ in range(self.n_d)])[int(sh)].extend(glist)
-        counts = {cap: sum(map(len, queues)) for cap, queues in by_cap.items()}
-        dispatches = 0
-        for cap in sorted(by_cap):
-            queues = by_cap[cap]
-            while any(queues):
-                for sh, queue in enumerate(queues):
-                    if not queue:
-                        continue
-                    chunk, queues[sh] = queue[: self.routed_groups], queue[self.routed_groups :]
-                    v = mv.shards[sh]
-                    off = sh * ln
-                    with maybe_phase(phases, "routed/pack"):
-                        g_start, st, en, slots = self._routed_layout(chunk, start, end)
+            # {cap: {shard: its groups}}
+            by_cap: dict[int, dict] = {}
+            for sh in np.unique(slab_of).tolist():
+                for cap, groups in self._pack_groups(start, end, q_idx[slab_of == sh]).items():
+                    by_cap.setdefault(cap, {})[sh] = groups
+            layouts = []
+            for cap in sorted(by_cap):
+                queues = by_cap[cap]
+                for s in range(0, max(map(len, queues.values())), R):
+                    for sh in sorted(queues):
+                        if s >= len(queues[sh]):
+                            continue
+                        off = sh * ln
+                        g_start, st, en, slots = self._routed_layout(queues[sh][s : s + R],
+                                                                     start, end)
                         # the slab's own positions; a pad place keeps its empty span
                         real = slots.reshape(st.shape) >= 0
-                        st = np.where(real, st - off, 0)
-                        en = np.where(real, en - off, 0)
-                    res = self._search_routed(
-                        v, *(upload_async(a, v.device) for a in (g_start - off, st, en)),
-                        upload_async(Qpack[slots], v.device), sn, n, k, cap)
-                    pending.append(("routed", slots, pack_result(*res)))
-                    dispatches += 1
-        return counts, dispatches
+                        layouts.append((sh, cap, g_start - off, np.where(real, st - off, 0),
+                                        np.where(real, en - off, 0), slots))
+            counts = {cap: sum(map(len, queues.values())) for cap, queues in by_cap.items()}
+            self._count_pack(q_idx.size, counts, len(layouts))
+        for sh, cap, g_start, st, en, slots in layouts:
+            v = mv.shards[sh]
+            res = self._search_routed(
+                v, *(upload_async(a, v.device) for a in (g_start, st, en)),
+                upload_async(Qpack[slots], v.device), sn, n, k, cap)
+            pending.append(("routed", slots, pack_result(*res)))
+        return counts, len(layouts)

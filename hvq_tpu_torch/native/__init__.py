@@ -6,11 +6,13 @@ synthetic generation (``gen_data``, ``gen_queries``, the same bytes as the
 JAX module's at the same seed and thread count) and host hardware counters
 (``PERF_COUNTER_NAMES``, ``PerfCounters``): the host-side roles the
 reference implements in C/C++ (include/io.h, src/write_data.c,
-include/perfevent.hpp).
+include/perfevent.hpp). Beside them, the partitioned engine's host router
+(``routing.cpp``): ``query_ranges``, each predicate's row range, and
+``pack_groups``, the greedy packer of the routed queries.
 
 The library is compiled with ``g++`` at first use into
 ``hvq_tpu_torch/_build/libhvq_native_<hash>.so``, keyed by a hash of the
-source and the flags, as the CUDA kernels are; importing this module
+sources and the flags, as the CUDA kernels are; importing this module
 builds nothing. ``available()`` is False only when no C++ compiler is
 found; a compile that fails raises with the compiler's message, and every
 entry point raises when the library cannot be had. Nothing falls back
@@ -31,6 +33,7 @@ import numpy as np
 
 _DIR = Path(__file__).resolve().parent
 _SOURCE = _DIR / "hvq_native.cpp"
+_ROUTING = _DIR / "routing.cpp"
 _SELF_TEST = _DIR / "self_test.cpp"
 BUILD_DIR = _DIR.parent / "_build"
 # The JAX package's Makefile flags, so the generators give the same bytes.
@@ -77,8 +80,8 @@ def _compile(out: Path, sources, extra=()) -> None:
 
 
 def library_path() -> Path:
-    """Where the library for this source and these flags lives."""
-    return BUILD_DIR / f"libhvq_native_{_key(_SOURCE)}.so"
+    """Where the library for these sources and these flags lives."""
+    return BUILD_DIR / f"libhvq_native_{_key(_SOURCE, _ROUTING)}.so"
 
 
 def _load():
@@ -89,7 +92,7 @@ def _load():
             if _lib is None:
                 so = library_path()
                 if not so.exists():
-                    _compile(so, [_SOURCE], extra=("-shared",))
+                    _compile(so, [_SOURCE, _ROUTING], extra=("-shared",))
                 lib = ctypes.CDLL(str(so))
                 _declare(lib)
                 build_info.update(path=str(so))
@@ -122,6 +125,15 @@ def _declare(lib) -> None:
     lib.hvq_perf_stop.argtypes = [ctypes.c_void_p]
     lib.hvq_perf_read.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_double)]
     lib.hvq_perf_close.argtypes = [ctypes.c_void_p]
+    p = np.ctypeslib.ndpointer
+    i32, i64, f32, f64 = (p(t, flags="C_CONTIGUOUS") for t in
+                          (np.int32, np.int64, np.float32, np.float64))
+    ll = ctypes.c_longlong
+    lib.hvq_query_ranges.restype = None
+    lib.hvq_query_ranges.argtypes = [ll, i32, f64, f64, f64, ll, f32, i64, ll, f32, f32,
+                                     i32, i64, i64, i64]
+    lib.hvq_pack_groups.restype = ll
+    lib.hvq_pack_groups.argtypes = [ll, i64, ll, i64, i64, ll, i64, ll, i32, i64, i64]
 
 
 def available() -> bool:
@@ -197,6 +209,69 @@ def gen_queries(m: int, seed: int = 1, categories: int = 0, threads: int = 0) ->
     out = np.empty((m, 104), dtype=np.float32)
     lib.hvq_gen_queries(_fptr(out), m, seed, categories, threads)
     return out
+
+
+def _needles(x: np.ndarray) -> np.ndarray:
+    """Search needles as float64. NumPy compares float32 keys with needles
+    in the two's promoted type, float32 or float64; float64 holds every
+    value of either, so the comparisons come out the same."""
+    x = np.asarray(x)
+    if np.promote_types(x.dtype, np.float32) not in (np.float32, np.float64):
+        raise TypeError(f"needles of dtype {x.dtype} do not compare in float32 or float64")
+    return np.ascontiguousarray(x, np.float64)
+
+
+def query_ranges(qtype, v, l, r, cats, bounds, T_key, T_sorted):
+    """Each query's (view, start, end) of the partitioned index
+    (``index.partition.PartitionedIndex.query_ranges``), and the counts
+    (table, segment, time) of the queries resolved by the category table
+    (types 1 and 3), by the type-3 segment search and by the type-2 search.
+    ``cats``, ``bounds``: the cat view's distinct C keys and their first
+    rows, then n; ``T_key``: its T keys; ``T_sorted``: every T, sorted."""
+    lib = _load()
+    qtype = np.ascontiguousarray(qtype, np.int32)
+    v, l, r = map(_needles, (v, l, r))
+    cats = np.ascontiguousarray(cats, np.float32)
+    bounds = np.ascontiguousarray(bounds, np.int64)
+    T_key = np.ascontiguousarray(T_key, np.float32)
+    T_sorted = np.ascontiguousarray(T_sorted, np.float32)
+    m, n = qtype.shape[0], T_key.shape[0]
+    if not (v.shape == l.shape == r.shape == (m,) and bounds.shape == (cats.size + 1,)
+            and T_sorted.shape == (n,) and bounds[-1] == n):
+        raise ValueError("query_ranges: mismatched shapes")
+    view = np.empty(m, np.int32)
+    start = np.empty(m, np.int64)
+    end = np.empty(m, np.int64)
+    counts = np.empty(3, np.int64)
+    lib.hvq_query_ranges(m, qtype, v, l, r, cats.size, cats, bounds, n, T_key, T_sorted,
+                         view, start, end, counts)
+    return view, start, end, tuple(int(c) for c in counts)
+
+
+def pack_groups(start, end, q_idx, caps, group):
+    """The greedy packer of the routed queries ``q_idx`` into shared
+    windows (``models.partitioned.PartitionedEngine._pack_groups``): each
+    group as the walk closes it, (cap index into ``caps`` int32 (NG,),
+    window start int64 (NG,), members int64 (NG, ``group``), -1 past the
+    last)."""
+    lib = _load()
+    start = np.ascontiguousarray(start, np.int64)
+    end = np.ascontiguousarray(end, np.int64)
+    q_idx = np.ascontiguousarray(q_idx, np.int64)
+    caps = np.ascontiguousarray(caps, np.int64)
+    nq, m = q_idx.shape[0], start.shape[0]
+    if end.shape != (m,):
+        raise ValueError("pack_groups: start and end differ in shape")
+    if nq and not caps.size:
+        raise ValueError("pack_groups: no caps to pack into")
+    g_cap = np.empty(nq, np.int32)
+    g_start = np.empty(nq, np.int64)
+    members = np.empty((nq, group), np.int64)
+    ng = lib.hvq_pack_groups(nq, q_idx, m, start, end, caps.size, caps, group, g_cap,
+                             g_start, members)
+    if ng < 0:
+        raise IndexError(f"pack_groups: a query index outside [0, {m})")
+    return g_cap[:ng], g_start[:ng], members[:ng]
 
 
 PERF_COUNTER_NAMES = (

@@ -72,6 +72,94 @@ def test_query_ranges_match_jax_and_count_the_passing_rows(ds, indices, case):
     assert tidx._time_view is None         # ranges need no time view
 
 
+def _edge_queries(case, ds):
+    """Queries at the edges of the native ranges' table and searches."""
+    levels = np.unique(ds.C)
+    T = np.sort(ds.T)
+    if case == "absent_first_last":     # below, between and above the levels, and on the ends
+        v = np.r_[levels[0] - 0.5, (levels[0] + levels[1]) / 2, levels[-1] + 0.5,
+                  levels[0], levels[-1], np.inf, -np.inf, np.nan]
+        l, r = np.full(v.size, T[10]), np.full(v.size, T[-10])
+        qtype = np.r_[[1] * v.size, [3] * v.size]
+        v, l, r = (np.r_[x, x] for x in (v, l, r))
+    else:
+        b = {"l_above_r": (T[2000], T[100]), "nan_bounds": (np.nan, T[500]),
+             "nan_upper": (T[500], np.nan), "inf_bounds": (-np.inf, np.inf),
+             "inf_reversed": (np.inf, -np.inf), "at_the_ends": (T[0], T[-1]),
+             "empty_segment": (T[10], T[-10])}[case]
+        v = np.r_[levels, levels[:3] + 0.01] if case == "empty_segment" else levels
+        l, r = np.full(v.size, b[0]), np.full(v.size, b[1])
+        qtype = np.r_[[3] * v.size, [2] * v.size]
+        v, l, r = (np.r_[x, x] for x in (v, l, r))
+    m = qtype.size
+    return QuerySet(qtype=qtype.astype(np.int32), v=v.astype(np.float32),
+                    l=l.astype(np.float32), r=r.astype(np.float32),
+                    V=np.zeros((m, 100), np.float32))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("case", ["absent_first_last", "empty_segment", "l_above_r",
+                                  "nan_bounds", "nan_upper", "inf_bounds", "inf_reversed",
+                                  "at_the_ends"])
+def test_native_ranges_match_jax_on_the_edges(ds, indices, case, dtype):
+    """The native pass (the category table, the type-3 segment search, the
+    type-2 search) gives the JAX package's ``np.searchsorted`` ranges bit
+    for bit: a category absent, below or above every level, or the first
+    or last one; type-3 segments left empty; l > r; NaN and ±inf bounds;
+    needles in float64 too, which NumPy compares in float64, nudged off
+    the float32 keys. Where the predicate is satisfiable (no NaN), the
+    range's length, or 0 if it ends before it starts, counts the rows
+    that pass."""
+    qs = _edge_queries(case, ds)
+    if dtype == np.float64:
+        qs = QuerySet(qtype=qs.qtype, v=qs.v.astype(dtype), l=qs.l.astype(dtype) - 1e-9,
+                      r=qs.r.astype(dtype) + 1e-9, V=qs.V)
+    jidx, tidx = indices
+    want = jidx.query_ranges(qs.qtype, qs.v, qs.l, qs.r)
+    got = tidx.query_ranges(qs.qtype, qs.v, qs.l, qs.r)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+    _, start, end = got
+    for i in range(qs.m):
+        t = int(qs.qtype[i])
+        if np.isnan([qs.v[i], qs.l[i], qs.r[i]]).any():
+            continue
+        passing = ds.C == qs.v[i] if t in (1, 3) else np.ones(ds.n, bool)
+        if t in (2, 3):
+            passing &= (ds.T >= qs.l[i]) & (ds.T <= qs.r[i])
+        assert max(end[i] - start[i], 0) == passing.sum(), (case, i)
+
+
+def test_native_ranges_hold_keys_with_ties_infinities_and_nan():
+    """Keys that hold ties, ±inf and NaN (sorted last, as NumPy sorts
+    them): the native ranges equal ``np.searchsorted``'s on the same
+    keys, and the category table's bounds equal the runs of C."""
+    rng = np.random.default_rng(9)
+    ds = generate_dataset(2500, seed=9, categories=6)
+    ds.T[:] = np.round(ds.T)                          # ties everywhere
+    ds.T[rng.integers(0, ds.n, 30)] = np.inf
+    ds.T[rng.integers(0, ds.n, 30)] = -np.inf
+    ds.T[rng.integers(0, ds.n, 5)] = np.nan
+    ds.C[rng.integers(0, ds.n, 40)] = np.inf
+    jidx = jpart.PartitionedIndex.build(ds, db_tile=DB_TILE)
+    tidx = tpart.PartitionedIndex.build(ds, db_tile=DB_TILE, device="cpu")
+    cats, bounds = tidx.cat_table
+    ck = tidx.cat_view.C_key
+    np.testing.assert_array_equal(bounds[1:-1], np.flatnonzero(ck[1:] != ck[:-1]) + 1)
+    assert (cats == ck[bounds[:-1]]).all() and bounds[-1] == ds.n
+    pool = np.r_[np.unique(ds.T), np.nan, 0.5, -0.0]
+    m = 400
+    qs = QuerySet(qtype=rng.integers(0, 4, m).astype(np.int32),
+                  v=rng.choice(np.r_[np.unique(ds.C), 0.3, np.nan], m).astype(np.float32),
+                  l=rng.choice(pool, m).astype(np.float32),
+                  r=rng.choice(pool, m).astype(np.float32), V=np.zeros((m, 100), np.float32))
+    with np.errstate(invalid="ignore"):      # the JAX package's diff of two infinities
+        want = jidx.query_ranges(qs.qtype, qs.v, qs.l, qs.r)
+    for g, w in zip(tidx.query_ranges(qs.qtype, qs.v, qs.l, qs.r), want):
+        np.testing.assert_array_equal(g, w)
+
+
 def test_tiles_for_ranges_and_pad_tile_list_match_jax():
     rng = np.random.default_rng(4)
     s = rng.integers(0, 2000, 20)

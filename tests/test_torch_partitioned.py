@@ -10,6 +10,7 @@ version, both the 3-pass bf16 split in the axis1 layout.
 """
 
 import dataclasses
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -214,6 +215,119 @@ def test_pack_groups_matches_jax_and_holds_its_invariants(routed_pair):
                 assert g_start <= start[q] and end[q] <= g_start + cap
             seen.extend(members)
     assert sorted(seen) == sorted(q_idx.tolist())
+
+
+def _jax_groups(start, end, q_idx, caps, group):
+    """The JAX engine's packer on its own, with these caps and group size."""
+    host = types.SimpleNamespace(route_buckets=tuple(caps), route_group=group)
+    return JaxPartitionedEngine._pack_groups(host, start, end, q_idx)
+
+
+def _norm(by_cap):
+    return {int(c): [(int(g), [int(q) for q in m]) for g, m in groups]
+            for c, groups in by_cap.items()}
+
+
+def _layout_of(groups, start, end, group):
+    """The dispatch layout of a list of (g_start, members), place by place."""
+    g_start = np.array([g for g, _ in groups], np.int64)
+    st = np.zeros((len(groups), group), np.int64)
+    en = np.zeros_like(st)
+    slots = np.full(len(groups) * group, -1, np.int64)
+    for gi, (_, members) in enumerate(groups):
+        for qi, q in enumerate(members):
+            st[gi, qi], en[gi, qi], slots[gi * group + qi] = start[q], end[q], q
+    return g_start, st, en, slots
+
+
+def _spans(case, rng):
+    """(start, end) of each packer path over caps (256, 1024, 4096): a
+    group extended within its cap, closed full, escalated twice while under
+    half full, closed at half full, closed at the widest cap, closed where
+    the next cap is too narrow, a window left unaligned where aligning it
+    would pass the widest cap, spans that end before they start, and a
+    random mix of them all."""
+    def pairs(*p):
+        return (np.array([a for a, _ in p], np.int64), np.array([b for _, b in p], np.int64))
+    if case == "extend":
+        return pairs(*[(s, s + 10) for s in range(10)])
+    if case == "full":
+        return pairs(*[(5, 20)] * 40)
+    if case == "escalate":
+        return pairs((0, 100), (0, 600), (0, 2000), (10, 50))
+    if case == "half_full_closes":      # under half full escalates, half full closes
+        return pairs(*[(0, 100)] * 7, (1, 600), *[(10000, 10100)] * 8, (10001, 10600))
+    if case == "widest_closes":
+        return pairs((0, 3000), (100, 4200), (200, 300))
+    if case == "next_too_narrow":
+        return pairs((0, 100), (0, 2000), (0, 100))
+    if case == "unaligned":
+        return pairs((130, 130 + 4095), (129, 200), (300, 4300))
+    if case == "reversed":
+        return pairs((500, 400), (500, 300), (10, 9), (9000, 10))
+    start = rng.integers(0, 20000, 300)
+    start[::3] = start[::3] // 1000 * 1000                       # ties
+    return start, start + rng.integers(-50, 4000, 300)
+
+
+@pytest.mark.parametrize("group", [1, 16])
+@pytest.mark.parametrize("case", ["extend", "full", "escalate", "half_full_closes",
+                                  "widest_closes", "next_too_narrow", "unaligned",
+                                  "reversed", "random"])
+def test_native_groups_and_layouts_match_jax_on_every_path(routed_pair, case, group):
+    """The native packer's groups equal the JAX engine's on each of its
+    paths, caps (256, 1024, 4096), route_group 1 and 16, the routed
+    queries given in any order; each dispatch's layout holds them place by
+    place, -1 and an empty span in every unused place."""
+    eng = routed_pair[3]
+    caps = (256, 1024, 4096)
+    start, end = _spans(case, np.random.default_rng(7))
+    q_idx = np.random.default_rng(8).permutation(start.size)
+    host = types.SimpleNamespace(route_buckets=caps, route_group=group)
+    got = PartitionedEngine._pack_groups(host, start, end, q_idx)
+    want = _jax_groups(start, end, q_idx, caps, group)
+    assert _norm(got) == _norm(want)
+    assert list(got) == list(want)          # caps in the order the walk first closed them
+    if case == "escalate" and group == 16:        # one group, escalated to 4096
+        ((g, members),) = _norm(got)[4096]
+        assert len(got) == 1 and g == 0 and sorted(members) == [0, 1, 2, 3]
+    if case == "unaligned":
+        assert (130, [0]) in _norm(want)[4096]
+    if case == "half_full_closes" and group == 16:
+        assert [len(m) for _, m in _norm(want)[1024]] == [8, 1]
+        assert [len(m) for _, m in _norm(want)[256]] == [8]
+    for cap, groups in got.items():
+        for s in range(0, len(groups), 3):
+            layout = eng._routed_layout(groups[s : s + 3], start, end)
+            for g, w in zip(layout, _layout_of(want[cap][s : s + 3], start, end, group)):
+                assert g.dtype == w.dtype
+                np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("route_group", [1, 16])
+def test_native_groups_match_jax_on_the_tiny_database_fallback(route_group):
+    """A database too small for a sound bin depth (uncertified, so no bin
+    depth is forced) routes every query over the cat view (the
+    full-coverage cap, type-2 ranges widened to the whole view): the groups
+    the engine packs equal the JAX engine's, and the search is exact."""
+    ds = generate_dataset(1500, seed=60, categories=12)
+    qs = generate_queries(48, seed=61, categories=12)
+    jeng, eng = _pair(ds, db_tile=128, query_batch=16, route_group=route_group,
+                      certified=False)
+    assert eng._route_all_fallback and jeng.bin_top is None
+    view_id, start, end = eng.index.query_ranges(qs.qtype, qs.v, qs.l, qs.r)
+    full, windows, routed, start, end, _ = eng._plan(qs, view_id, start, end)
+    assert full.size == 0 and not windows and [v for v, _ in routed] == [0]
+    q_idx = routed[0][1]
+    assert q_idx.size == qs.m
+    got = eng._pack_groups(start, end, q_idx)
+    want = jeng._pack_groups(start, end, q_idx)
+    assert _norm(got) == _norm(want) and eng.route_buckets[-1] in got
+    for cap, groups in got.items():
+        layout = eng._routed_layout(groups, start, end)
+        for g, w in zip(layout, _layout_of(want[cap], start, end, route_group)):
+            np.testing.assert_array_equal(g, w)
+    _exact(ds, qs, eng)
 
 
 @pytest.mark.parametrize("sample_proportion", [1.0, 0.6])

@@ -211,6 +211,71 @@ def test_all_types_with_the_time_view_dealt_and_windows_on(wide, sample_proporti
     assert eng.index._time_view is not None
 
 
+@pytest.mark.parametrize("route_group,routed_groups", [(1, 16), (16, 2)])
+def test_per_slab_groups_and_dispatches_match_jax(wide, monkeypatch, route_group,
+                                                   routed_groups):
+    """On 4 virtual shards: the routed queries of types 1 and 3 are packed
+    slab by slab into the JAX engine's groups (its ``_pack_groups`` on each
+    slab's queries), and every dispatch carries, in the shards' round-robin
+    order, ``routed_groups`` of one slab's groups in that slab's own
+    positions, a pad place with an empty span; the answers stay exact."""
+    from hvq_tpu.models.partitioned import PartitionedEngine as JPartitioned
+
+    ds, eng = wide
+    monkeypatch.setattr(eng, "route_group", route_group)
+    monkeypatch.setattr(eng, "routed_groups", routed_groups)
+    qs = generate_queries(96, seed=95, categories=40, types=(1, 3))
+    view_id, start, end = eng.index.query_ranges(qs.qtype, qs.v, qs.l, qs.r)
+    _, _, routed, start, end, _ = eng._plan(qs, view_id, start, end)
+    (vid, q_idx), = routed
+    assert vid == 0
+    ln, G = eng._local_n, route_group
+    host = types.SimpleNamespace(route_buckets=eng.route_buckets, route_group=G)
+    slab_of = start[q_idx] // ln
+    want = {}                                     # {cap: {shard: [(g_start, members)]}}
+    for sh in np.unique(slab_of).tolist():
+        got = eng._pack_groups(start, end, q_idx[slab_of == sh])
+        jax = JPartitioned._pack_groups(host, start, end, q_idx[slab_of == sh])
+        norm = lambda d: {c: [(int(g), [int(q) for q in m]) for g, m in v] for c, v in d.items()}
+        assert norm(got) == norm(jax)
+        for cap, groups in jax.items():
+            want.setdefault(cap, {})[sh] = groups
+    assert len(np.unique(slab_of)) >= 2
+    expected = []
+    for cap in sorted(want):
+        for s in range(0, max(map(len, want[cap].values())), routed_groups):
+            for sh in sorted(want[cap]):
+                chunk = want[cap][sh][s : s + routed_groups]
+                if not chunk:
+                    continue
+                off = sh * ln
+                st = np.zeros((len(chunk), G), np.int64)
+                en = np.zeros_like(st)
+                slots = np.full(len(chunk) * G, -1, np.int64)
+                for gi, (_, members) in enumerate(chunk):
+                    for qi, q in enumerate(members):
+                        st[gi, qi], en[gi, qi] = start[q] - off, end[q] - off
+                        slots[gi * G + qi] = q
+                expected.append((sh, cap, np.array([g - off for g, _ in chunk]), st, en,
+                                 slots))
+    seen = []
+    search_routed = eng._search_routed
+
+    def record(view, g_start, st, en, Q, sn, n, k, cap):
+        shard = next(j for j, v in enumerate(eng.index.cat_view.shards) if v is view)
+        seen.append((shard, cap, g_start.numpy(), st.numpy(), en.numpy()))
+        return search_routed(view, g_start, st, en, Q, sn, n, k, cap)
+
+    monkeypatch.setattr(eng, "_search_routed", record)
+    ids, dists = eng.search(qs)
+    assert eng.last_route["routed_dispatches"] == len(seen) == len(expected) >= 3
+    for (sh, cap, g, st, en), want_ in zip(seen, expected):
+        assert (sh, cap) == want_[:2]
+        for a, b in zip((g, st, en), want_[2:5]):
+            np.testing.assert_array_equal(a, b)
+    _exact(ds, qs, ids, dists, *search_oracle(ds, qs))
+
+
 def test_each_shard_holds_its_rows_and_no_whole_view_exists(wide):
     """Each shard's device tensors hold n_pad / n_d rows: the cat view's
     contiguous slab j, equal to the same rows of the one-device view; the

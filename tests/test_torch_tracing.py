@@ -115,10 +115,15 @@ def test_routed_pack_runs_inside_search_routed(setup):
     assert route["windowed"] > 0 and route["full"] > 0
     spans = {s["id"]: s for s in program["spans"]}
     packs = [s for s in spans.values() if s["name"] == "routed/pack"]
-    # the packer of each routed view, then one layout a dispatch
-    assert len(packs) == route["routed_dispatches"] + sum(
-        1 for n in (route["routed_cat"], route["routed_time"]) if n)
+    # one a routed view: its groups, then every dispatch's layout
+    assert len(packs) == sum(1 for n in (route["routed_cat"], route["routed_time"]) if n)
     assert all(spans[s["parent"]]["name"] == "search/routed" for s in packs)
+    # each with its pack counter, which counts what last_route does
+    counters = [c for c in program["counters"] if c["name"] == "pack"]
+    assert sorted(c["span"] for c in counters) == sorted(s["id"] for s in packs)
+    assert sum(c["queries"] for c in counters) == route["routed_cat"] + route["routed_time"]
+    assert sum(c["groups"] for c in counters) == sum(route["routed_groups"].values())
+    assert sum(c["layouts"] for c in counters) == route["routed_dispatches"]
 
 
 @pytest.mark.parametrize("name", ["batched", "paged", "ivf", "sharded", "partitioned_sharded"])
@@ -305,8 +310,41 @@ def test_cli_profile_puts_the_search_span_around_its_aten_ops(tmp_path):
     ops = [e for e in events if e.get("cat") == "cpu_op"]
     assert ops and all(lo <= e["ts"] and e["ts"] + e["dur"] <= hi for e in ops)
     counters = {e["name"] for e in events if e.get("pid") == profiling.SPAN_PID and e["ph"] == "i"}
-    assert "k1_launch" in counters and counters <= {"k1_launch", "ladder_suspects",
-                                                    "level2_select"}
+    assert {"k1_launch", "route"} <= counters <= {"k1_launch", "ladder_suspects",
+                                                  "level2_select", "route", "pack"}
+
+
+@pytest.mark.parametrize("engine", ["partitioned", "partitioned_sharded"])
+def test_cli_profile_counts_the_native_router_by_query_type(tmp_path, engine):
+    """``run --profile``: one ``route`` counter under ``search/route``
+    whose counts are the file's query types (table: types 1 and 3,
+    segment: type 3, time: type 2), and a ``pack`` counter under each
+    ``routed/pack`` span, whose queries are routed ones of types 1–3,
+    packed into at least queries ÷ route_group groups, one layout or more."""
+    from hvq_tpu_torch.cli.main import main
+
+    ds = generate_dataset(6000, seed=44, categories=20)
+    qs = generate_queries(120, seed=45, categories=20)
+    formats.write_data_bin(tmp_path / "data.bin", ds)
+    formats.write_query_bin(tmp_path / "queries.bin", qs)
+    rc = main(["run", "--data", str(tmp_path / "data.bin"),
+               "--queries", str(tmp_path / "queries.bin"), "--engine", engine,
+               "--output", str(tmp_path / "out.bin"), "--device", "cpu",
+               "--query-batch", "16", "--db-tile", "512", "--profile", str(tmp_path / "prof")])
+    assert rc == 0
+    events = json.loads((tmp_path / "prof" / "trace.json").read_text())["traceEvents"]
+    mine = [e for e in events if e.get("pid") == profiling.SPAN_PID]
+    by_id = {e["args"]["id"]: e for e in mine if e["ph"] == "X"}
+    counted = lambda name: [e["args"] for e in mine if e["ph"] == "i" and e["name"] == name]
+    n = Counter(qs.qtype.tolist())
+    (route,) = counted("route")
+    assert by_id[route["span"]]["name"] == "search/route"
+    assert (route["queries"], route["table"], route["segment"], route["time"]) == (
+        qs.m, n[1] + n[3], n[3], n[2])
+    packs = counted("pack")
+    assert packs and all(by_id[c["span"]]["name"] == "routed/pack" for c in packs)
+    assert 0 < sum(c["queries"] for c in packs) <= n[1] + n[2] + n[3]
+    assert all(c["groups"] * 16 >= c["queries"] > 0 and c["layouts"] >= 1 for c in packs)
 
 
 def test_cli_profile_carries_the_mesh_spans(tmp_path):
